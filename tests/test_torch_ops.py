@@ -1,0 +1,181 @@
+"""Ops of the PyTorch port (torchdr_tpu_torch/ops) against the JAX package.
+
+The same numpy inputs, made from a seed, go through the JAX function and
+its counterpart in the port (on the CPU, ``device="cpu"`` tensors).
+
+Tolerances: distances agree to rtol 1e-5 (both are one float32 gram with
+the same norm corrections, summed in another order); kNN index sets agree
+per row (``torch.topk`` and ``lax.top_k`` may order ties differently);
+the calibration agrees to rtol 1e-5 (both bisect the same function, whose
+float32 values differ only in summation order), with atol 1e-8 on the
+tail of P; the symmetrized graphs
+agree densified to atol 1e-6 (the fuzzy union of the same float32 values).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchdr_tpu.affinity.knn_normalized import _umap_calibrate as jax_calibrate
+from torchdr_tpu.ops.distance import knn_graph as jax_knn_graph
+from torchdr_tpu.ops.metrics import pairwise_block as jax_pairwise_block
+from torchdr_tpu.ops.sparse import sparse_to_dense as jax_sparse_to_dense
+from torchdr_tpu.ops.sparse import symmetrize_sparse as jax_symmetrize_sparse
+from torchdr_tpu_torch.affinity.knn_normalized import _umap_calibrate
+from torchdr_tpu_torch.ops.distance import knn_graph
+from torchdr_tpu_torch.ops.metrics import pairwise_block
+from torchdr_tpu_torch.ops.root_search import binary_search
+from torchdr_tpu_torch.ops.sparse import sparse_to_dense, symmetric_degrees, symmetrize_sparse
+
+
+def _clustered(n, d, seed, n_clusters=5):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=4.0, size=(n_clusters, d))
+    labels = rng.integers(0, n_clusters, n)
+    return (centers[labels] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "manhattan"])
+def test_pairwise_block_matches_jax(metric):
+    X = _clustered(300, 32, seed=0)
+    Y = _clustered(200, 32, seed=1)
+    want = np.asarray(jax_pairwise_block(jnp.asarray(X), jnp.asarray(Y), metric))
+    got = pairwise_block(torch.from_numpy(X), torch.from_numpy(Y), metric).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("db_block", [65_536, 256])
+def test_knn_graph_exact_matches_jax(db_block):
+    """db_block=256 drives the column-chunked running top-k merge."""
+    X = np.random.default_rng(2).normal(size=(1500, 32)).astype(np.float32)
+    want_d, want_i = jax_knn_graph(jnp.asarray(X), k=15, mode="exact")
+    got_d, got_i = knn_graph(torch.from_numpy(X), k=15, mode="exact", db_block=db_block)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5)
+    want_i, got_i = np.asarray(want_i), got_i.numpy()
+    rows = np.arange(X.shape[0])
+    assert not np.any(got_i == rows[:, None])  # self excluded
+    for r in rows:
+        assert set(got_i[r]) == set(want_i[r])
+
+
+def test_knn_graph_approx_maps_to_exact():
+    X = _clustered(400, 16, seed=3)
+    Xt = torch.from_numpy(X)
+    d_exact, i_exact = knn_graph(Xt, k=10, mode="exact")
+    d_approx, i_approx = knn_graph(Xt, k=10, mode="approx")
+    assert torch.equal(d_exact, d_approx) and torch.equal(i_exact, i_approx)
+
+
+def test_umap_calibrate_matches_jax():
+    X = _clustered(1200, 32, seed=4)
+    X = X - X.mean(0, keepdims=True)
+    C, _ = jax_knn_graph(jnp.asarray(X), k=15)
+    C = np.array(C)
+    want = [np.asarray(a) for a in jax_calibrate(jnp.asarray(C), 15.0, 100)]
+    got = [a.numpy() for a in _umap_calibrate(torch.from_numpy(C), 15.0, 100)]
+    for name, g, w in zip(("P", "rho", "eps"), got, want):
+        # P = exp(-x/eps) carries eps's relative error times x/eps, which
+        # reaches ~20 in a row's tail: tail values (P < 1e-3) agree to 1e-8
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-8 if name == "P" else 0, err_msg=name)
+
+
+def test_binary_search_sync_interval_is_bit_identical():
+    """Testing the stop condition every few iterations changes nothing:
+    converged rows are frozen by the active mask."""
+    rng = np.random.default_rng(5)
+    target = torch.from_numpy(rng.uniform(0.01, 50.0, 257).astype(np.float32))
+
+    def f(x):
+        return torch.log(x) - torch.log(target)
+
+    every = binary_search(f, 257, sync_every=1)
+    sparse = binary_search(f, 257, sync_every=8)
+    assert torch.equal(every, sparse)
+    np.testing.assert_allclose(every.numpy(), target.numpy(), rtol=1e-5)
+
+
+def _knn_values(n, k, seed):
+    X = _clustered(n, 8, seed=seed)
+    C, idx = jax_knn_graph(jnp.asarray(X), k=k)
+    P, _, _ = jax_calibrate(C, float(k), 100)
+    P, idx = np.asarray(P), np.asarray(idx).astype(np.int32)
+    # a few padding slots, as a pruned or capped graph carries
+    rng = np.random.default_rng(seed)
+    pad = rng.random(P.shape) < 0.05
+    return np.where(pad, 0.0, P).astype(np.float32), np.where(pad, -1, idx)
+
+
+@pytest.mark.parametrize("mode", ["sum_minus_prod", "sum"])
+@pytest.mark.parametrize("capped", [False, True])
+def test_symmetrize_sparse_matches_jax(mode, capped):
+    P, idx = _knn_values(500, 10, seed=6)
+    max_deg = int(symmetric_degrees(torch.from_numpy(idx)).max())
+    k_out = 8 if capped else None
+    if capped:
+        assert k_out < max_deg  # forces value-priority packing
+    wv, wi = jax_symmetrize_sparse(jnp.asarray(P), jnp.asarray(idx), mode=mode, k_out=k_out)
+    gv, gi = symmetrize_sparse(torch.from_numpy(P), torch.from_numpy(idx), mode=mode, k_out=k_out)
+    assert tuple(gv.shape) == tuple(wv.shape)
+    want = np.asarray(jax_sparse_to_dense(wv, wi, P.shape[0]))
+    got = sparse_to_dense(gv, gi, P.shape[0]).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_symmetric_degrees_matches_definition():
+    _, idx = _knn_values(300, 6, seed=7)
+    valid = idx >= 0
+    want = valid.sum(1) + np.bincount(idx[valid], minlength=300)
+    np.testing.assert_array_equal(symmetric_degrees(torch.from_numpy(idx)).numpy(), want)
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "manhattan", "angular"])
+def test_indexed_block_matches_jax(metric):
+    from torchdr_tpu.ops.metrics import indexed_block as jax_indexed_block
+    from torchdr_tpu_torch.ops.metrics import indexed_block
+
+    rng = np.random.default_rng(8)
+    Xq = rng.normal(size=(100, 8)).astype(np.float32)
+    Yk = rng.normal(size=(100, 7, 8)).astype(np.float32)
+    want = np.asarray(jax_indexed_block(jnp.asarray(Xq), jnp.asarray(Yk), metric))
+    got = indexed_block(torch.from_numpy(Xq), torch.from_numpy(Yk), metric).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_pairwise_distances_topk_matches_jax():
+    from torchdr_tpu.ops.distance import pairwise_distances as jax_pairwise_distances
+    from torchdr_tpu_torch.ops.distance import pairwise_distances
+
+    X = np.random.default_rng(9).normal(size=(200, 12)).astype(np.float32)
+    wd, wi = jax_pairwise_distances(jnp.asarray(X), k=5, exclude_diag=True)
+    gd, gi = pairwise_distances(torch.from_numpy(X), k=5, exclude_diag=True)
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_kmin_kmax_match_jax(dim):
+    from torchdr_tpu.ops.reductions import kmax as jax_kmax
+    from torchdr_tpu.ops.reductions import kmin as jax_kmin
+    from torchdr_tpu_torch.ops.reductions import kmax, kmin
+
+    C = np.random.default_rng(10).normal(size=(40, 30)).astype(np.float32)
+    for port, ref in ((kmin, jax_kmin), (kmax, jax_kmax)):
+        gv, gi = port(torch.from_numpy(C), 4, dim=dim)
+        wv, wi = ref(jnp.asarray(C), 4, dim=dim)
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+@pytest.mark.parametrize("u_based", [True, False])
+def test_svd_flip_matches_jax(u_based):
+    from torchdr_tpu.ops.reductions import svd_flip as jax_svd_flip
+    from torchdr_tpu_torch.ops.reductions import svd_flip
+
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=(20, 5)).astype(np.float32)
+    v = rng.normal(size=(5, 9)).astype(np.float32)
+    wu, wv = jax_svd_flip(jnp.asarray(u), jnp.asarray(v), u_based_decision=u_based)
+    gu, gv = svd_flip(torch.from_numpy(u), torch.from_numpy(v), u_based_decision=u_based)
+    np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
+    np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))

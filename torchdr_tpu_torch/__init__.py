@@ -1,0 +1,27 @@
+"""torchdr_tpu_torch: the PyTorch/CUDA port of ``torchdr_tpu``.
+
+The package mirrors the JAX package file for file; each module names its
+counterpart. Its hand-written Hopper kernels live in ``ops/csrc/`` and are
+bound in ``ops/cuda/``.
+
+Device: every estimator takes ``device``. ``"auto"`` means ``cuda`` and
+raises when no card is present; only an explicit ``device="cpu"`` runs on
+the CPU, where each kernel wrapper takes its plain PyTorch version.
+
+Precision: everything is float32. Importing this package sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False``: a TF32 distance gram keeps
+about three decimal digits and flips neighbour ranks in the kNN graph.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .affinity import UMAPAffinity  # noqa: E402
+from .models.neighbor import UMAP  # noqa: E402
+from .models.spectral import PCA  # noqa: E402
+from .ops.distance import knn_graph, pairwise_distances  # noqa: E402
+
+__all__ = ["UMAP", "UMAPAffinity", "PCA", "knn_graph", "pairwise_distances"]

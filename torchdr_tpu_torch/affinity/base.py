@@ -1,0 +1,131 @@
+"""Affinity base hierarchy (counterpart of ``torchdr_tpu/affinity/base.py``).
+
+- :class:`Affinity` — dense ``(n, n)`` affinity in probability domain.
+- :class:`SparseAffinity` — rectangular padded ``(n, k)`` values + indices.
+
+``zero_diag`` excludes the self-distance by masking it to ``MASK_VALUE``.
+The log-domain classes, the device-mesh build, the IVF tier and the
+sharded kNN wait for later slices.
+"""
+
+from __future__ import annotations
+
+from abc import ABC
+from typing import Dict, Optional
+
+import torch
+
+from ..base import BaseEstimator, resolve_device
+from ..ops.distance import knn_graph, pairwise_distances
+from ..ops.knn_config import KnnConfig
+from ..utils.logger import get_logger, log_phase
+from ..utils.wrappers import to_torch
+
+
+class Affinity(BaseEstimator, ABC):
+    """Base class for dense affinity matrices.
+
+    ``__call__`` moves its input to ``device`` ("auto" = the CUDA card,
+    raising without one) and computes there. ``timings_`` holds the wall
+    time of the last kNN build ("knn").
+    """
+
+    def __init__(
+        self,
+        metric: str = "sqeuclidean",
+        zero_diag: bool = True,
+        device: str = "auto",
+        verbose: bool = False,
+        random_state: Optional[int] = None,
+        knn_mode: str = "exact",
+        knn_precision: str = "highest",
+        **kwargs,
+    ):
+        self.metric = metric
+        self.zero_diag = bool(zero_diag)
+        self.device = device if device is not None else "auto"
+        self.verbose = bool(verbose)
+        self.random_state = random_state
+        cfg = knn_mode if isinstance(knn_mode, KnnConfig) else KnnConfig(
+            mode=knn_mode, precision=knn_precision
+        )
+        self._knn_cfg = cfg
+        self.knn_mode = cfg.mode
+        self.knn_precision = cfg.precision
+        self.knn_block_size = cfg.block_size
+        self.logger = get_logger(type(self).__name__, self.verbose)
+        self.timings_: Dict[str, float] = {}
+
+    def __call__(self, X, **kwargs):
+        X, _ = to_torch(X, device=resolve_device(self.device))
+        return self._compute_affinity(X, **kwargs)
+
+    def _compute_affinity(self, X: torch.Tensor, **kwargs):
+        raise NotImplementedError(
+            "[TorchDR-Torch] ERROR : `_compute_affinity` method is not implemented."
+        )
+
+    def _distance_matrix(
+        self, X: torch.Tensor, k: Optional[int] = None, return_indices: bool = False
+    ):
+        """Pairwise distances; ``(n, k)`` kNN form when ``k`` is given."""
+        if self.metric in ("sqeuclidean", "euclidean"):
+            # The norms+gram form ‖x‖²+‖y‖²−2⟨x,y⟩ cancels in float32 when
+            # the data sits far from the origin; centering restores the
+            # conditioning exactly (distances are translation invariant).
+            X = X - torch.mean(X, dim=0, keepdim=True)
+        if k is None:
+            C, _ = pairwise_distances(X, metric=self.metric, exclude_diag=self.zero_diag)
+            return (C, None) if return_indices else C
+        if self.knn_mode == "ivf":
+            raise NotImplementedError(
+                "[TorchDR-Torch] ERROR : the IVF kNN tier is not ported yet."
+            )
+        with log_phase(self.logger, "knn", self.timings_, X.device):
+            C, indices = knn_graph(
+                X,
+                k=k,
+                metric=self.metric,
+                exclude_diag=self.zero_diag,
+                mode=self.knn_mode,
+                precision=self.knn_precision,
+                block_size=self.knn_block_size,
+            )
+        return (C, indices) if return_indices else C
+
+
+class SparseAffinity(Affinity, ABC):
+    """Affinity with a rectangular padded ``(n, k)`` representation.
+
+    The sparse representation is a (values, indices) pair; padding slots
+    hold value 0 / index -1.
+    """
+
+    def __init__(
+        self,
+        metric: str = "sqeuclidean",
+        zero_diag: bool = True,
+        device: str = "auto",
+        verbose: bool = False,
+        random_state: Optional[int] = None,
+        sparsity: bool = True,
+        **kwargs,
+    ):
+        super().__init__(
+            metric=metric,
+            zero_diag=zero_diag,
+            device=device,
+            verbose=verbose,
+            random_state=random_state,
+            **kwargs,
+        )
+        self.sparsity = bool(sparsity)
+
+    def __call__(self, X, return_indices: bool = True, **kwargs):
+        X, _ = to_torch(X, device=resolve_device(self.device))
+        return self._compute_sparse_affinity(X, return_indices=return_indices, **kwargs)
+
+    def _compute_sparse_affinity(self, X: torch.Tensor, return_indices: bool = True, **kwargs):
+        raise NotImplementedError(
+            "[TorchDR-Torch] ERROR : `_compute_sparse_affinity` is not implemented."
+        )

@@ -1,0 +1,101 @@
+"""Build the CUDA sources of ``ops/csrc/`` and load them with ``ctypes``.
+
+Each source ``ops/csrc/<name>.cu`` exposes a plain C interface and is
+compiled on its own, at first use, with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC
+
+into ``torchdr_tpu_torch/_build/lib<name>-<hash>.so``, where ``<hash>`` is
+taken from the source and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing is compiled when a module is
+imported. :func:`build_libraries` starts one ``nvcc`` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+SRC_DIR = _PKG_DIR / "ops" / "csrc"
+BUILD_DIR = _PKG_DIR / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+#: the C signature of each library's entry point: (function, argtypes)
+_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "umap_repulsion": (
+        "umap_shared_repulsion",
+        [_V, _V, _V, _V, _V, _I, _I, _I, _F, _F, _F, _V],
+    ),
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "[TorchDR-Torch] ERROR : nvcc not found; the CUDA kernels are "
+            "built from source at first use and need the CUDA toolkit."
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_libraries(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
+    """Compile every missing library, one ``nvcc`` per source, in parallel."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("[TorchDR-Torch] ERROR : nvcc failed for " + "\n".join(failed))
+    return [library_path(name) for name in names]
+
+
+def load_function(name: str):
+    """The entry point of library ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        (path,) = build_libraries([name])
+        lib = ctypes.CDLL(str(path))
+        _LOADED[name] = lib
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,0 +1,111 @@
+"""Pairwise distance and kNN-graph primitives.
+
+Counterpart of ``torchdr_tpu/ops/distance.py``:
+
+- :func:`pairwise_distances` — dense distances, optional top-k selection.
+- :func:`knn_graph` — exact kNN over row blocks (O(block · m) memory), one
+  float32 matrix product and one ``torch.topk`` per block, with a running
+  top-k merge over column chunks for large databases.
+
+Self-exclusion adds ``MASK_VALUE`` on the diagonal, as the JAX package does.
+``knn_graph_host_chunked`` waits for a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .metrics import MASK_VALUE, check_metric, pairwise_block
+
+
+def pairwise_distances(
+    X: torch.Tensor,
+    Y: Optional[torch.Tensor] = None,
+    metric: str = "sqeuclidean",
+    k: Optional[int] = None,
+    exclude_diag: bool = False,
+):
+    """Dense pairwise distances, optionally reduced to the k smallest per row.
+
+    Returns ``(C, indices)`` where ``indices`` is None when ``k`` is None.
+    """
+    check_metric(metric)
+    self_mode = Y is None
+    C = pairwise_block(X, X if self_mode else Y, metric)
+    if exclude_diag and self_mode:
+        C = C + MASK_VALUE * torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
+    if k is None:
+        return C, None
+    return torch.topk(C, k, dim=1, largest=False, sorted=True)
+
+
+def _mask_self(C: torch.Tensor, row0: int, col0: int) -> None:
+    """In place: add MASK_VALUE where global row id == global column id."""
+    b, m = C.shape
+    lo, hi = max(row0, col0), min(row0 + b, col0 + m)
+    if lo < hi:
+        ids = torch.arange(lo, hi, device=C.device)
+        C[ids - row0, ids - col0] += MASK_VALUE
+
+
+def knn_graph(
+    X: torch.Tensor,
+    Y: Optional[torch.Tensor] = None,
+    k: int = 15,
+    metric: str = "sqeuclidean",
+    exclude_diag: bool = True,
+    block_size: int = 1024,
+    precision: str = "highest",
+    mode: str = "exact",
+    recall_target: float = 0.95,
+    db_block: int = 65_536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kNN graph: for each row of X, the k nearest rows of Y (or X).
+
+    Query rows go in blocks of ``block_size``; each block is one float32
+    product followed by ``torch.topk``. Databases wider than ``db_block``
+    columns are scanned in column chunks with a running top-k merge, so
+    every live buffer stays ≤ block · db_block.
+
+    ``mode="approx"`` is the JAX package's ``lax.approx_min_k`` tier, which
+    has no torch counterpart: the port maps it to the exact tier (100%
+    recall). ``precision`` and ``recall_target`` are accepted for parity and
+    unused. Returns ``(dists, indices)`` of shape ``(n, k)``, ascending.
+    """
+    check_metric(metric)
+    if mode not in ("exact", "approx"):
+        raise ValueError(f"[TorchDR-Torch] ERROR : unknown knn mode {mode!r}.")
+    self_mode = Y is None
+    Yc = X if self_mode else Y
+    n, m = X.shape[0], Yc.shape[0]
+    block = min(block_size, max(8, n))
+    mask_self = exclude_diag and self_mode
+
+    dists = torch.empty((n, k), dtype=X.dtype, device=X.device)
+    indices = torch.empty((n, k), dtype=torch.int64, device=X.device)
+    for r0 in range(0, n, block):
+        Xb = X[r0 : r0 + block]
+        if m <= db_block:
+            C = pairwise_block(Xb, Yc, metric, precision)
+            if mask_self:
+                _mask_self(C, r0, 0)
+            d, i = torch.topk(C, k, dim=1, largest=False, sorted=True)
+        else:
+            d = torch.full((Xb.shape[0], k), MASK_VALUE, dtype=X.dtype, device=X.device)
+            i = torch.full((Xb.shape[0], k), -1, dtype=torch.int64, device=X.device)
+            for c0 in range(0, m, db_block):
+                C = pairwise_block(Xb, Yc[c0 : c0 + db_block], metric, precision)
+                if mask_self:
+                    _mask_self(C, r0, c0)
+                dc, ic = torch.topk(
+                    C, min(k, C.shape[1]), dim=1, largest=False, sorted=True
+                )
+                cand_d = torch.cat([d, dc], dim=1)
+                cand_i = torch.cat([i, ic + c0], dim=1)
+                d, sel = torch.topk(cand_d, k, dim=1, largest=False, sorted=True)
+                i = torch.gather(cand_i, 1, sel)
+        dists[r0 : r0 + block] = d
+        indices[r0 : r0 + block] = i
+    return dists, indices

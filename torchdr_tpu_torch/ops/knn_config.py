@@ -1,0 +1,47 @@
+"""kNN tier configuration object (copy of ``torchdr_tpu/ops/knn_config.py``).
+
+The port builds the exact tier only; "approx" maps to exact (see
+:func:`torchdr_tpu_torch.ops.distance.knn_graph`) and "ivf" waits for a
+later slice. The IVF fields are kept so a configuration carries over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class KnnConfig:
+    """Tuning for the kNN-graph builder (ops/distance.knn_graph).
+
+    Parameters
+    ----------
+    mode : {"exact", "approx", "ivf"}
+    precision : {"highest", "high", "default"}
+        Accepted for parity; the port's gram is always exact float32.
+    recall_target : float
+        Recall target of the JAX package's approx tier (unused here).
+    block_size : int
+        Query rows per block.
+    """
+
+    mode: str = "exact"
+    precision: str = "highest"
+    recall_target: float = 0.95
+    block_size: int = 1024
+    nprobe: int = 16
+    n_clusters: Optional[int] = None
+    budget: Optional[int] = None
+    merge: Optional[str] = None
+    m: Optional[int] = None
+    ivf_block: Optional[int] = None
+    nomination: Optional[str] = None
+    rerank: bool = False
+    storage: str = "auto"
+
+    def __post_init__(self):
+        if self.mode not in ("exact", "approx", "ivf"):
+            raise ValueError(f"[TorchDR-Torch] unknown knn mode {self.mode!r}")
+        if self.precision not in ("highest", "high", "default"):
+            raise ValueError(f"[TorchDR-Torch] unknown knn precision {self.precision!r}")
