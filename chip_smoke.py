@@ -7,15 +7,18 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the main path, from the sources in the
    checkout (one nvcc per source, started together);
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes plus edge cases, with its time, the plain
-   version's time and its bound;
-4. fit: ``UMAP(random_state=0).fit_transform(X)`` on 60,000 x 784 float32
-   synthetic data (50 Gaussian clusters, seeded), with every kernel launch
-   counter set to 0 just before and read just after; phase times, peak
-   memory, launches, NaN check and a 10-NN label accuracy of the embedding;
+3. kernels: each kernel (K1, K2, K3) against its plain PyTorch version on
+   the card, at the main paths' shapes plus edge cases, with its time, the
+   plain version's time and its bound;
+4. fits, each with every kernel launch counter set to 0 just before and
+   read just after: ``UMAP(random_state=0).fit_transform(X)`` on 60,000 x
+   784 float32 synthetic data (50 Gaussian clusters, seeded), then
+   ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
+   10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
+   10-NN label accuracy of the embedding;
 5. with ``--profile`` only: device time by kernel and the device's idle
-   share over 200 optimizer steps of the same fit (torch.profiler).
+   share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
+   (torch.profiler).
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -34,8 +37,18 @@ import time
 import numpy as np
 
 N, D_IN, N_CLUSTERS, SEED = 60_000, 784, 50, 0
+N_TSNE = 10_000  # the exact t-SNE/SNE paths' size
 S_MAIN = 512  # shared negatives of the UMAP path at n = 60k
-TOL = 1e-5  # max |kernel - plain|: same arithmetic, float64 sums in both
+TOL = 1e-5  # K1, max |kernel - plain|: same arithmetic, float64 sums in both
+# K2: |kernel - plain| <= TOL_K2 * max(1, |plain|). Float32 tile sums of at
+# most 256 terms (kernel) against one float32 logsumexp over the row
+# (plain): both ~1e-6 relative in the row sum, so ~1e-6 in the log.
+TOL_K2 = 1e-5
+# K3: max |kernel - plain| <= TOL_K3 * max |plain|. The same float32
+# products, summed in float32 tiles then float64 (kernel) or in float64
+# (plain); a force is a sum of terms of both signs, so the tiles' error is
+# relative to the sum of |terms|, which exceeds |force|.
+TOL_K3 = 1e-4
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 
@@ -133,6 +146,166 @@ def check_k1(torch, gen, a: float, b: float) -> dict:
     }
 
 
+def rowlse_bound_ms(n: int, d: int, which: str, kernel: str) -> tuple:
+    """Least time for K2's or K3's work on an H100: the larger of its bytes
+    over memory rate (Z, and for K3 lse and g, read once; the output
+    written once) and its float32 operations over the float32 rate. Both
+    functions are symmetric in the pair, so each of the n(n - 1)/2
+    unordered pairs is evaluated once. K2: 3d + 3 per pair (d differences,
+    d squares, d - 1 adds, the kernel value in 2, the adds into rows i and
+    j) and a log per row. K3: 6d + 4 per pair for student (d differences,
+    2d - 1 for d², 3 for q², u_i + u_j, the coefficient, d products, 2d
+    accumulations into rows i and j; gaussian one fewer) and d + 3 per row
+    (u_i = -g_i e^(-lse_i), the factor 2). Each exp, log and divide counts
+    as one operation."""
+    pairs = n * (n - 1) // 2
+    if which == "K2":
+        bytes_moved = 4 * n * d + 4 * n
+        ops = pairs * (3 * d + 3) + n
+    else:
+        bytes_moved = 4 * n * d + 8 * n + 4 * n * d
+        ops = pairs * (6 * d + 4 - (1 if kernel == "gaussian" else 0)) + n * (d + 3)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_k2_k3(torch, gen) -> tuple:
+    """K2 and K3 against their plain versions on the card; times at the
+    t-SNE path's shape (n = 10,000, d = 2, student)."""
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+        rowlse_bwd,
+        rowlse_bwd_plain,
+        rowlse_fwd,
+        rowlse_fwd_plain,
+    )
+
+    dev = torch.device("cuda")
+    worst = {"K2": 0.0, "K3": 0.0}
+
+    def spread_grid(n_side, spacing):
+        # points on a grid: the nearest neighbour is `spacing` away, so
+        # exp(-d^2) underflows in float32 for every pair of every row
+        g = torch.arange(n_side, device=dev, dtype=torch.float32) * spacing
+        Z = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+        return (Z + 0.01 * torch.rand(Z.shape, generator=gen, device=dev)).contiguous()
+
+    cases = [
+        ("main d=2", N_TSNE, 2, "student", None),
+        ("main d=2 gaussian", N_TSNE, 2, "gaussian", None),
+        ("d=3", N_TSNE, 3, "student", None),
+        ("ragged n", 9_973, 2, "student", None),
+        ("small n", 300, 2, "gaussian", None),
+        ("underflowing gaussian", 64 * 64, 2, "gaussian", 15.0),
+    ]
+    for label, n, d, kernel, spacing in cases:
+        if spacing is None:
+            Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+        else:
+            Z = spread_grid(64, spacing)
+        out = rowlse_fwd(Z, kernel)
+        ref = rowlse_fwd_plain(Z, kernel)
+        g = torch.softmax(ref, 0) if kernel == "student" else torch.full_like(ref, 1.0 / n)
+        dZ = rowlse_bwd(Z, ref, g, kernel)
+        dZ_ref = rowlse_bwd_plain(Z, ref, g, kernel)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(dZ).all())
+        e2 = float((out - ref).abs().max())
+        lim2 = TOL_K2 * max(1.0, float(ref.abs().max()))
+        e3 = float((dZ - dZ_ref).abs().max())
+        lim3 = TOL_K3 * float(dZ_ref.abs().max())
+        print(
+            f"K2/K3 {label}: n={n} d={d} {kernel} max|K2-plain|={e2:.3e} (limit {lim2:.1e}) "
+            f"max|K3-plain|={e3:.3e} (limit {lim3:.1e}, max|plain| "
+            f"{float(dZ_ref.abs().max()):.3e}) lse in [{float(ref.min()):.4g}, "
+            f"{float(ref.max()):.4g}]",
+            flush=True,
+        )
+        if not (finite and bool(torch.isfinite(ref).all())):
+            raise AssertionError(f"K2/K3 {label}: non-finite values")
+        if not e2 <= lim2:
+            raise AssertionError(f"K2 {label}: max abs err {e2} > {lim2}")
+        if not e3 <= lim3:
+            raise AssertionError(f"K3 {label}: max abs err {e3} > {lim3}")
+        worst["K2"] = max(worst["K2"], e2)
+        worst["K3"] = max(worst["K3"], e3)
+
+    n, d, kernel = N_TSNE, 2, "student"
+    Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+    lse = rowlse_fwd_plain(Z, kernel)
+    g = torch.softmax(lse, 0)
+    records = []
+    for which, fn, plain, src, line, name in (
+        ("K2", lambda: rowlse_fwd(Z, kernel), lambda: rowlse_fwd_plain(Z, kernel),
+         "torchdr_tpu_torch/ops/csrc/rowlse_fwd.cu", 105, "rowlse_fwd (K2)"),
+        ("K3", lambda: rowlse_bwd(Z, lse, g, kernel), lambda: rowlse_bwd_plain(Z, lse, g, kernel),
+         "torchdr_tpu_torch/ops/csrc/rowlse_bwd.cu", 230, "rowlse_bwd (K3)"),
+    ):
+        ms = cuda_time_ms(fn, reps=100)
+        plain_ms = cuda_time_ms(plain, reps=5)
+        bound_ms, bound_by = rowlse_bound_ms(n, d, which, kernel)
+        print(
+            f"{which} time n={n} d={d} {kernel}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by})",
+            flush=True,
+        )
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": f"torchdr_tpu/ops/pallas/reduce_kernel.py:{line}",
+            "launches": None,
+            "max_abs_err": worst[which],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes this function
+        })
+    return tuple(records)
+
+
+def make_data(n: int):
+    """n x 784 float32 rows around 50 Gaussian cluster centres, seed 0."""
+    rng = np.random.default_rng(SEED)
+    centers = rng.normal(scale=4.0, size=(N_CLUSTERS, D_IN)).astype(np.float32)
+    labels = rng.integers(0, N_CLUSTERS, n)
+    return centers[labels] + rng.standard_normal((n, D_IN), dtype=np.float32), labels
+
+
+def run_fit(torch, model, X, labels, counters, expect) -> dict:
+    """One fit on the card with every launch counter set to 0 just before
+    and read just after; fails unless each kernel in ``expect`` launched
+    once per step and the others not at all, or on a bad embedding."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    Z = model.fit_transform(X)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    name = type(model).__name__
+    if Z.shape != (X.shape[0], 2) or not np.all(np.isfinite(Z)):
+        raise AssertionError(f"{name}: embedding has shape {Z.shape} or non-finite values")
+    for fn_name, count in launches.items():
+        want = model.n_iter_ if fn_name in expect else 0
+        if count != want or (fn_name in expect and count == 0):
+            raise AssertionError(f"{name}: {fn_name} launched {count} times in {model.n_iter_} steps")
+    Zt = torch.from_numpy(Z).cuda()
+    acc = knn_label_accuracy(torch, Zt, torch.from_numpy(labels).cuda())
+    fit = {
+        "model": name, "n": X.shape[0], "d": X.shape[1], "steps": model.n_iter_,
+        "wall_s": wall, "phases_s": model.timings_, "peak_mem_gb": peak_gb,
+        "launches": launches, "knn10_label_acc": acc,
+    }
+    print("fit " + json.dumps(fit), flush=True)
+    if acc < 0.9:
+        raise AssertionError(f"{name}: 10-NN label accuracy {acc} < 0.9")
+    return fit
+
+
 def knn_label_accuracy(torch, Z, labels, n_sub: int = 10_000, k: int = 10, seed: int = 0):
     """10-NN majority-label accuracy of the embedding on a row subsample."""
     g = torch.Generator(device=Z.device)
@@ -146,15 +319,15 @@ def knn_label_accuracy(torch, Z, labels, n_sub: int = 10_000, k: int = 10, seed:
     return float((votes.argmax(1) == ys).float().mean())
 
 
-def profile_optimize(torch, X, steps: int = 200, top: int = 8, device: str = "auto") -> dict:
-    """Device time by kernel over ``steps`` optimizer steps of the 60k fit
-    (torch.profiler), and the device's busy share of that window's wall
-    time. The affinity and init phases run first, outside the window."""
+def profile_optimize(torch, model_cls, X, steps: int = 200, top: int = 8,
+                     device: str = "auto") -> dict:
+    """Device time by kernel over ``steps`` optimizer steps of a fit of
+    ``model_cls`` on X (torch.profiler), and the device's busy share of that
+    window's wall time. The affinity and init phases run first, outside the
+    window."""
     from torch.profiler import ProfilerActivity, profile
 
-    from torchdr_tpu_torch import UMAP
-
-    model = UMAP(random_state=0, max_iter=steps, device=device)
+    model = model_cls(random_state=0, max_iter=steps, device=device)
     Xd = torch.from_numpy(X).to(model._resolve_device())
     model.n_samples_in_, model.n_features_in_ = Xd.shape
     model._generator_ = model._root_generator()
@@ -185,6 +358,8 @@ def profile_optimize(torch, X, steps: int = 200, top: int = 8, device: str = "au
     kernels.sort(key=device_us, reverse=True)
     busy_s = sum(device_us(e) for e in kernels) / 1e6
     return {
+        "model": model_cls.__name__,
+        "n": X.shape[0],
         "steps": steps,
         "wall_ms_per_step": wall / steps * 1e3,
         "device_busy_ms_per_step": busy_s / steps * 1e3,
@@ -203,10 +378,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torchdr_tpu_torch  # noqa: F401  (sets TF32 off)
-    from torchdr_tpu_torch import UMAP
+    from torchdr_tpu_torch import SNE, TSNE, UMAP
     from torchdr_tpu_torch.models.neighbor.umap import find_ab_params
     from torchdr_tpu_torch.ops.cuda.build import build_libraries
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import rowlse_bwd, rowlse_fwd
     from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
+
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd)
 
     # 1. device
     smi = nvidia_smi_line()
@@ -226,43 +404,30 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     k1 = check_k1(torch, gen, *find_ab_params(1.0, 0.1))  # UMAP's defaults
+    k2, k3 = check_k2_k3(torch, gen)
 
-    # 4. the slice: UMAP fit on 60k x 784
-    rng = np.random.default_rng(SEED)
-    centers = rng.normal(scale=4.0, size=(N_CLUSTERS, D_IN)).astype(np.float32)
-    labels = rng.integers(0, N_CLUSTERS, N)
-    X = centers[labels] + rng.standard_normal((N, D_IN), dtype=np.float32)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fused_shared_repulsion.launches = 0
-    t0 = time.perf_counter()
-    model = UMAP(random_state=0, device="auto")
-    Z = model.fit_transform(X)
-    wall = time.perf_counter() - t0
-    launches = fused_shared_repulsion.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    k1["launches"] = launches
-
-    if Z.shape != (N, 2) or not np.all(np.isfinite(Z)):
-        raise AssertionError(f"embedding has shape {Z.shape} or non-finite values")
-    if launches != model.n_iter_ or launches == 0:
-        raise AssertionError(f"K1 launched {launches} times in {model.n_iter_} steps")
-    Zt = torch.from_numpy(Z).cuda()
-    acc = knn_label_accuracy(torch, Zt, torch.from_numpy(labels).cuda())
-    fit = {
-        "n": N, "d": D_IN, "steps": model.n_iter_, "wall_s": wall,
-        "phases_s": model.timings_, "peak_mem_gb": peak_gb,
-        "k1_launches": launches, "knn10_label_acc": acc,
-    }
-    print("fit " + json.dumps(fit), flush=True)
-    if acc < 0.9:
-        raise AssertionError(f"10-NN label accuracy {acc} < 0.9")
+    # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784
+    X, labels = make_data(N)
+    umap = run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
+                   expect=("fused_shared_repulsion",))
+    k1["launches"] = umap["launches"]["fused_shared_repulsion"]
+    X10, labels10 = make_data(N_TSNE)
+    tsne = run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10, counters,
+                   expect=("rowlse_fwd", "rowlse_bwd"))
+    k2["launches"] = tsne["launches"]["rowlse_fwd"]
+    k3["launches"] = tsne["launches"]["rowlse_bwd"]
+    # SNE's lr="auto" (n/4 = 2,500) diverges on these data, in the JAX
+    # package as in the port (|Z| ~1e16 after 30 steps): a hub point whose
+    # column of P sums to ~14/n makes lr times the attraction's curvature
+    # ~7.6, beyond heavy-ball stability (2(1 + 0.8) = 3.6); n/12 is under it
+    run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
+            counters, expect=("rowlse_fwd", "rowlse_bwd"))
 
     if "--profile" in sys.argv[1:]:
-        print("profile " + json.dumps(profile_optimize(torch, X)), flush=True)
+        print("profile " + json.dumps(profile_optimize(torch, UMAP, X)), flush=True)
+        print("profile " + json.dumps(profile_optimize(torch, TSNE, X10)), flush=True)
 
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

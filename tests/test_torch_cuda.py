@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from torchdr_tpu_torch import UMAP
+from torchdr_tpu_torch import TSNE, UMAP
+from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+    rowlse_bwd,
+    rowlse_bwd_plain,
+    rowlse_fwd,
+    rowlse_fwd_plain,
+)
 from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion, shared_repulsion_plain
 
 A, B, EPS = 1.577, 0.8951, 1e-3
@@ -57,3 +63,48 @@ def test_fit_on_the_card_launches_k1_every_step(cuda):
     Z = model.fit_transform(X)
     assert fused_shared_repulsion.launches == model.n_iter_ == 100
     assert Z.shape == (2000, 2) and np.all(np.isfinite(Z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("n, d", [(5003, 2), (777, 3), (1, 2), (130, 8)])
+def test_k2_k3_kernels_match_plain(cuda, kernel, n, d):
+    """K2: 1e-5 of max(1, |lse|) (float32 tile sums against one float64 sum
+    of the same float32 terms); K3: 1e-4 of max |dZ| (the same products,
+    summed in float32 tiles then float64, against float64)."""
+    rng = np.random.default_rng(n + d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    before = (rowlse_fwd.launches, rowlse_bwd.launches)
+    lse = rowlse_fwd(Z, kernel)
+    want = rowlse_fwd_plain(Z, kernel)
+    if n == 1:  # a row with no term: -inf in both, and a zero gradient
+        assert torch.isneginf(lse).all() and torch.isneginf(want).all()
+        assert float(rowlse_bwd(Z, want, torch.ones_like(want), kernel).abs().max()) == 0.0
+        return
+    assert float((lse - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    g = torch.softmax(want, 0)
+    got = rowlse_bwd(Z, want, g, kernel)
+    ref = rowlse_bwd_plain(Z, want, g, kernel)
+    assert (rowlse_fwd.launches, rowlse_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_k2_keeps_underflowing_gaussian_rows_exact(cuda):
+    g = (torch.arange(20, dtype=torch.float32) * 11.0).to(cuda)
+    Z = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2).contiguous()
+    lse = rowlse_fwd(Z, "gaussian")
+    assert torch.isfinite(lse).all() and float(lse.max()) < -100
+    assert float((lse - rowlse_fwd_plain(Z, "gaussian")).abs().max()) <= 1e-5 * float(lse.abs().max())
+
+
+@pytest.mark.cuda
+def test_tsne_fit_on_the_card_launches_k2_k3_every_step(cuda):
+    rng = np.random.default_rng(1)
+    centers = rng.normal(scale=8.0, size=(4, 16))
+    X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
+    rowlse_fwd.launches = rowlse_bwd.launches = 0
+    model = TSNE(perplexity=20, max_iter=120, random_state=0)
+    Z = model.fit_transform(X)
+    assert rowlse_fwd.launches == rowlse_bwd.launches == model.n_iter_ == 120
+    assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))

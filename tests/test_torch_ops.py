@@ -3,8 +3,9 @@
 The same numpy inputs, made from a seed, go through the JAX function and
 its counterpart in the port (on the CPU, ``device="cpu"`` tensors).
 
-Tolerances: distances agree to rtol 1e-5 (both are one float32 gram with
-the same norm corrections, summed in another order); kNN index sets agree
+Tolerances: distances agree to rtol 1e-5 (the port's float32 gram with
+norm corrections against the JAX function in float64 and a float64 numpy
+reference; the port is within ~2e-7 of both); kNN index sets agree
 per row (``torch.topk`` and ``lax.top_k`` may order ties differently);
 the calibration agrees to rtol 1e-5 (both bisect the same function, whose
 float32 values differ only in summation order), with atol 1e-8 on the
@@ -12,11 +13,13 @@ tail of P; the symmetrized graphs
 agree densified to atol 1e-6 (the fuzzy union of the same float32 values).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_threads import warm_worker_threads  # noqa: F401
 from torchdr_tpu.affinity.knn_normalized import _umap_calibrate as jax_calibrate
 from torchdr_tpu.ops.distance import knn_graph as jax_knn_graph
 from torchdr_tpu.ops.metrics import pairwise_block as jax_pairwise_block
@@ -36,13 +39,34 @@ def _clustered(n, d, seed, n_clusters=5):
     return (centers[labels] + rng.normal(size=(n, d))).astype(np.float32)
 
 
+def _exact_pairwise(X, Y, metric):
+    diff = X.astype(np.float64)[:, None, :] - Y.astype(np.float64)[None, :, :]
+    if metric == "manhattan":
+        return np.abs(diff).sum(-1)
+    sq = (diff**2).sum(-1)
+    return sq if metric == "sqeuclidean" else np.sqrt(sq)
+
+
 @pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "manhattan"])
 def test_pairwise_block_matches_jax(metric):
+    """The port's float32 distances against the JAX function evaluated in
+    float64, and against a float64 numpy reference, both at rtol 1e-5.
+
+    A float32 evaluation of the JAX function is no stable reference here:
+    in one run of the whole suite (six workers) it came out up to 3.1e-4
+    from float64 on 11.8% of the entries, with the port's values within
+    1.7e-7 of float64. It did not recur, and the same executables reloaded
+    from that run's compilation cache are exact.
+    """
     X = _clustered(300, 32, seed=0)
     Y = _clustered(200, 32, seed=1)
-    want = np.asarray(jax_pairwise_block(jnp.asarray(X), jnp.asarray(Y), metric))
+    with jax.enable_x64(True):
+        want = np.asarray(
+            jax_pairwise_block(jnp.asarray(X, jnp.float64), jnp.asarray(Y, jnp.float64), metric)
+        )
     got = pairwise_block(torch.from_numpy(X), torch.from_numpy(Y), metric).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got, _exact_pairwise(X, Y, metric), rtol=1e-5)
 
 
 @pytest.mark.parametrize("db_block", [65_536, 256])

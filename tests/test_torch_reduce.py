@@ -1,0 +1,184 @@
+"""The row log-sum reductions of the PyTorch port (K2, K3 and their plain
+versions, ``ops/reduce.py``) against the JAX package.
+
+The same numpy inputs, made from a seed, go to both. On the CPU the port's
+wrappers take the plain versions; the JAX package's
+``pairwise_logkernel_rowlse`` takes its blockwise XLA tier, and its TPU
+kernels run in interpret mode, as ``tests/test_ops.py`` runs them.
+
+Tolerances:
+
+- forward against the XLA tier and the interpret-mode TPU kernel: abs 1e-5
+  (float32 row sums of up to 400 terms in other orders; the JAX package's
+  own tolerance for its kernel). The XLA tier is evaluated in float64: a
+  float32 evaluation of the JAX package has once come out 3.1e-4 off in a
+  multi-worker run of the suite (``tests/_torch_threads.py``);
+- gradient against ``jax.grad`` of the XLA tier, also in float64: abs 1e-5
+  (the gradients here are below 1e-1 in size, the port's float32 values
+  agree to ~1e-7 of that);
+- gradient against the interpret-mode TPU backward: abs 1e-4, the JAX
+  package's own tolerance for that kernel (``tests/test_ops.py``);
+- far-apart gaussian rows: rtol 1e-6 with abs 1e-5 against the XLA tier
+  evaluated in float64 (the float32 gram form of the XLA tier cancels at
+  |z|² ≫ d² there; the values are ~-110, where one float32 ulp is 7.6e-6).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_threads import warm_worker_threads  # noqa: F401
+from torchdr_tpu.ops.pallas.reduce_kernel import rowlse_bwd_pallas, rowlse_fwd_pallas
+from torchdr_tpu.ops.reduce import pairwise_logkernel_logsumexp as jax_logsumexp_red
+from torchdr_tpu.ops.reduce import pairwise_logkernel_rowlse as jax_rowlse
+from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+    column_chunks,
+    rowlse_bwd,
+    rowlse_bwd_plain,
+    rowlse_fwd,
+    rowlse_fwd_plain,
+)
+from torchdr_tpu_torch.ops.reduce import (
+    pairwise_logkernel_logsumexp,
+    pairwise_logkernel_rowlse,
+)
+
+
+def _Z(n, d=2, seed=0, scale=2.0):
+    return (scale * np.random.default_rng(seed).normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("n", [257, 130])
+@pytest.mark.parametrize("exclude_diag", [True, False])
+def test_rowlse_matches_jax_xla_tier(kernel, n, exclude_diag):
+    """n not a multiple of the block (64): the ragged last block."""
+    Z = _Z(n, seed=n)
+    with jax.enable_x64(True):
+        want = np.asarray(jax_rowlse(jnp.asarray(Z, jnp.float64), kernel, exclude_diag, 64))
+    got = pairwise_logkernel_rowlse(torch.from_numpy(Z), kernel, exclude_diag, 64).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_rowlse_matches_jax_tpu_kernel_interpret(kernel):
+    Z = _Z(300, seed=3, scale=1.0)
+    want = np.asarray(
+        rowlse_fwd_pallas(jnp.asarray(Z), kernel, True, q_tile=64, db_tile=128, interpret=True)
+    )
+    got = rowlse_fwd(torch.from_numpy(Z), kernel, True).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _far_apart(spacing=10.5, side=3):
+    """A centred grid: every pair is at least ``spacing`` apart, so
+    exp(-d²) underflows in float32 (d² > 104) for every term of every row."""
+    g = (np.arange(side) - (side - 1) / 2) * spacing
+    Z = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    return (Z + 0.01 * np.random.default_rng(4).random(Z.shape)).astype(np.float32)
+
+
+def test_far_apart_gaussian_rows_stay_exact():
+    """The TPU kernel sums exp(-d²) with no max shift and clamps the sum at
+    1e-30, so such rows read log(1e-30) = -69.08; the port follows the XLA
+    tier's logsumexp and returns the exact, finite values."""
+    Z = _far_apart()
+    pallas = np.asarray(
+        rowlse_fwd_pallas(jnp.asarray(Z), "gaussian", True, q_tile=8, db_tile=128, interpret=True)
+    )
+    np.testing.assert_allclose(pallas, np.log(np.float32(1e-30)), rtol=1e-6)
+    with jax.enable_x64(True):
+        want = np.asarray(jax_rowlse(jnp.asarray(Z, jnp.float64), "gaussian", True, 64))
+    got = pairwise_logkernel_rowlse(torch.from_numpy(Z), "gaussian").numpy()
+    assert np.all(np.isfinite(got)) and got.max() < -100
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    # and its backward stays finite where every exp(-d²) underflows
+    Zt = torch.from_numpy(Z).requires_grad_(True)
+    (grad,) = torch.autograd.grad(pairwise_logkernel_rowlse(Zt, "gaussian").sum(), Zt)
+    assert torch.isfinite(grad).all()
+
+
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("reduction", ["logsumexp", "mean"])
+def test_rowlse_gradient_matches_jax_grad(kernel, reduction):
+    """t-SNE's logsumexp of the rows and SNE's mean of the rows, through the
+    port's autograd Function (K3's plain version) and ``jax.grad``."""
+    Z = _Z(211, seed=5)
+
+    def jax_loss(Zj):
+        if reduction == "logsumexp":
+            return jax_logsumexp_red(Zj, kernel, True, 64)
+        return jnp.sum(jax_rowlse(Zj, kernel, True, 64)) / Zj.shape[0]
+
+    with jax.enable_x64(True):
+        want = np.asarray(jax.grad(jax_loss)(jnp.asarray(Z, jnp.float64)))
+    Zt = torch.from_numpy(Z).requires_grad_(True)
+    if reduction == "logsumexp":
+        loss = pairwise_logkernel_logsumexp(Zt, kernel, True, 64)
+    else:
+        loss = pairwise_logkernel_rowlse(Zt, kernel, True, 64).sum() / Z.shape[0]
+    (got,) = torch.autograd.grad(loss, Zt)
+    assert np.abs(want).max() < 1e-1
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_rowlse_backward_matches_jax_tpu_kernel_interpret(kernel):
+    Z = _Z(200, seed=6, scale=1.0)
+    Zj = jnp.asarray(Z)
+    lse = rowlse_fwd_pallas(Zj, kernel, True, q_tile=64, db_tile=128, interpret=True)
+    g = jax.nn.softmax(lse)
+    want = np.asarray(
+        rowlse_bwd_pallas(Zj, lse, g, kernel, True, q_tile=64, db_tile=128, interpret=True)
+    )
+    got = rowlse_bwd(
+        torch.from_numpy(Z), torch.from_numpy(np.array(lse)), torch.from_numpy(np.array(g)),
+        kernel,
+    ).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+def test_plain_backward_is_the_f64_gradient():
+    """K3's plain version against the gradient of the row log-sums computed
+    in float64 numpy by hand: 1e-6 relative to the largest entry."""
+    Z = _Z(150, seed=7)
+    Zt = torch.from_numpy(Z)
+    lse = rowlse_fwd_plain(Zt, "student")
+    g = torch.softmax(lse, 0)
+    got = rowlse_bwd_plain(Zt, lse, g, "student").numpy()
+    Z64 = Z.astype(np.float64)
+    diff = Z64[:, None, :] - Z64[None, :, :]
+    q = 1.0 / (1.0 + (diff**2).sum(-1))
+    np.fill_diagonal(q, 0.0)
+    lse64 = np.log(q.sum(1))
+    g64 = np.exp(lse64 - lse64.max())
+    g64 /= g64.sum()
+    c = -(g64 * np.exp(-lse64))[:, None] * q**2
+    want = 2.0 * ((c + c.T)[:, :, None] * diff).sum(1)
+    np.testing.assert_allclose(got, want, atol=1e-6 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("n", [1, 127, 300, 10_000, 60_000])
+def test_column_chunks_cover_every_column(n):
+    """The kernels' grid: chunks tile [0, n) with no empty chunk, the chunk
+    a whole number of rows' worth of work, about one wave of 132 SMs."""
+    n_chunks, chunk = column_chunks(n, 132)
+    assert n_chunks >= 1 and chunk >= 1
+    assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
+    row_tiles = -(-n // 128)
+    if n >= 10_000:
+        assert row_tiles * n_chunks >= 132 * 8  # the card is filled
+
+
+def test_wrappers_check_their_inputs():
+    Z = torch.zeros((16, 2))
+    with pytest.raises(ValueError, match="kernel"):
+        rowlse_fwd(Z, "cauchy")
+    with pytest.raises(ValueError, match="float32"):
+        rowlse_fwd(Z.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rowlse_fwd(torch.zeros((2, 16)).T)
+    with pytest.raises(ValueError, match="shape"):
+        rowlse_bwd(Z, torch.zeros(15), torch.zeros(16))

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import warm_worker_threads  # noqa: F401
 from torchdr_tpu.affinity.knn_normalized import UMAPAffinity as JaxUMAPAffinity
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.neighbor.umap import UMAP as JaxUMAP
@@ -37,6 +38,7 @@ from torchdr_tpu_torch.models.spectral.pca import PCA
 from torchdr_tpu_torch.ops.sparse import sparse_to_dense
 from torchdr_tpu_torch.utils.interop import load_reference_state
 from torchdr_tpu_torch.utils.optim import make_optimizer
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

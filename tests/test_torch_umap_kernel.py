@@ -19,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import warm_worker_threads  # noqa: F401
 from torchdr_tpu.ops.pallas.umap_kernel import fused_shared_repulsion as jax_k1
 from torchdr_tpu_torch.ops.cuda.umap_kernel import (
     fused_shared_repulsion,
     shared_repulsion_plain,
 )
+
 
 A, B, EPS = 1.577, 0.8951, 1e-3
 

@@ -19,9 +19,18 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .affinity import UMAPAffinity  # noqa: E402
-from .models.neighbor import UMAP  # noqa: E402
+from .affinity import EntropicAffinity, UMAPAffinity  # noqa: E402
+from .models.neighbor import SNE, TSNE, UMAP  # noqa: E402
 from .models.spectral import PCA  # noqa: E402
 from .ops.distance import knn_graph, pairwise_distances  # noqa: E402
 
-__all__ = ["UMAP", "UMAPAffinity", "PCA", "knn_graph", "pairwise_distances"]
+__all__ = [
+    "SNE",
+    "TSNE",
+    "UMAP",
+    "EntropicAffinity",
+    "UMAPAffinity",
+    "PCA",
+    "knn_graph",
+    "pairwise_distances",
+]

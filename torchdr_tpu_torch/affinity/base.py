@@ -1,11 +1,13 @@
 """Affinity base hierarchy (counterpart of ``torchdr_tpu/affinity/base.py``).
 
 - :class:`Affinity` — dense ``(n, n)`` affinity in probability domain.
+- :class:`LogAffinity` — dense, computed in log domain.
 - :class:`SparseAffinity` — rectangular padded ``(n, k)`` values + indices.
+- :class:`SparseLogAffinity` — sparse, computed in log domain.
 
 ``zero_diag`` excludes the self-distance by masking it to ``MASK_VALUE``.
-The log-domain classes, the device-mesh build, the IVF tier and the
-sharded kNN wait for later slices.
+The device-mesh build, the IVF tier and the sharded kNN wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -94,6 +96,20 @@ class Affinity(BaseEstimator, ABC):
         return (C, indices) if return_indices else C
 
 
+class LogAffinity(Affinity, ABC):
+    """Affinity computed in log domain; ``__call__(X, log=True)`` returns logs."""
+
+    def __call__(self, X, log: bool = False, **kwargs):
+        X, _ = to_torch(X, device=resolve_device(self.device))
+        log_aff = self._compute_log_affinity(X, **kwargs)
+        return log_aff if log else torch.exp(log_aff)
+
+    def _compute_log_affinity(self, X: torch.Tensor, **kwargs):
+        raise NotImplementedError(
+            "[TorchDR-Torch] ERROR : `_compute_log_affinity` method is not implemented."
+        )
+
+
 class SparseAffinity(Affinity, ABC):
     """Affinity with a rectangular padded ``(n, k)`` representation.
 
@@ -128,4 +144,32 @@ class SparseAffinity(Affinity, ABC):
     def _compute_sparse_affinity(self, X: torch.Tensor, return_indices: bool = True, **kwargs):
         raise NotImplementedError(
             "[TorchDR-Torch] ERROR : `_compute_sparse_affinity` is not implemented."
+        )
+
+
+class SparseLogAffinity(SparseAffinity, ABC):
+    """Sparse affinity computed in log domain.
+
+    ``__call__`` returns probabilities by default (padding slots, index -1,
+    hold 0); ``log=True`` returns the log values.
+    """
+
+    def __call__(self, X, return_indices: bool = True, log: bool = False, **kwargs):
+        X, _ = to_torch(X, device=resolve_device(self.device))
+        result = self._compute_sparse_log_affinity(X, return_indices=return_indices, **kwargs)
+        if return_indices:
+            log_aff, indices = result
+            return (log_aff if log else self._masked_exp(log_aff, indices)), indices
+        return result if log else torch.exp(result)
+
+    @staticmethod
+    def _masked_exp(log_aff: torch.Tensor, indices: Optional[torch.Tensor]) -> torch.Tensor:
+        aff = torch.exp(log_aff)
+        if indices is not None:
+            aff = torch.where(indices >= 0, aff, torch.zeros_like(aff))
+        return aff
+
+    def _compute_sparse_log_affinity(self, X: torch.Tensor, return_indices: bool = True, **kwargs):
+        raise NotImplementedError(
+            "[TorchDR-Torch] ERROR : `_compute_sparse_log_affinity` is not implemented."
         )

@@ -15,9 +15,11 @@ Python loop over device tensors with the same per-step plan:
   ``check_interval`` steps. Only those check steps read the device; no
   other step synchronises.
 
-This slice carries closed-form gradients (UMAP). The autograd loss path,
-the device mesh, parametric encoders and bounded dispatches wait for later
-slices.
+Gradients come in closed form (``_gradients``, UMAP) or by autograd of a
+scalar loss (``_loss``, t-SNE and SNE): each step then takes
+``torch.autograd.grad`` on a detached copy of Z that requires grad. The
+generic ``affinity_out`` loss, the device mesh, parametric encoders and
+bounded dispatches wait for later slices.
 """
 
 from __future__ import annotations
@@ -230,21 +232,35 @@ class AffinityMatcher(DRModule):
         has_ee = self._ee_coeff > 1.0 and self._ee_iter > 0
         return int(self._ee_iter) if has_ee else -1
 
-    # --- gradients (overridden by subclasses) ---
+    # --- losses / gradients (overridden by subclasses) ---
+
+    def _loss(self, Z, consts, carry, it, ee_coeff):
+        """Scalar loss of the autograd path: ``(loss, carry)``."""
+        raise NotImplementedError(
+            "[TorchDR-Torch] ERROR : _loss must be implemented; the generic "
+            "affinity_out loss is not ported yet."
+        )
 
     def _gradients(self, Z, consts, carry, it, ee_coeff, neg_ids=None):
         raise NotImplementedError(
-            "[TorchDR-Torch] ERROR : _gradients must be implemented; the "
-            "autograd loss path is not ported yet."
+            "[TorchDR-Torch] ERROR : _gradients must be implemented when "
+            "_use_closed_form_gradients is True."
         )
+
+    def _loss_gradients(self, Z, consts, carry, it, ee_coeff):
+        """dL/dZ of :meth:`_loss` by autograd, on a detached copy of Z."""
+        Zg = Z.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss, carry = self._loss(Zg, consts, carry, it, ee_coeff)
+            (grad,) = torch.autograd.grad(loss, Zg)
+        return grad, carry
 
     # --- the optimization loop ---
 
     def _optimize(self, Z0: torch.Tensor, consts: Dict, carry0: Dict):
-        if not self._use_closed_form_gradients:
-            raise NotImplementedError(
-                "[TorchDR-Torch] ERROR : only closed-form gradients are ported yet."
-            )
+        gradients = (
+            self._gradients if self._use_closed_form_gradients else self._loss_gradients
+        )
         opt = make_optimizer(self.optimizer)
         schedule = self._make_schedule()
         ee_iter = self._ee_iter_resolved()
@@ -259,7 +275,7 @@ class AffinityMatcher(DRModule):
             if ee_iter >= 0 and it == ee_iter + 1:
                 # the reference re-creates the optimizer after step ee_iter
                 opt_state = opt.reset(opt_state)
-            grad, carry = self._gradients(Z, consts, carry, it, coeff)
+            grad, carry = gradients(Z, consts, carry, it, coeff)
             Z, opt_state = opt.update(grad, opt_state, Z, lr_t, hyper)
             n_iter = it + 1
             if it % check_interval == 0:

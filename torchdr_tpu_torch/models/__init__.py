@@ -1,6 +1,6 @@
 """Estimators."""
 
-from .neighbor import UMAP
+from .neighbor import SNE, TSNE, UMAP
 from .spectral import PCA
 
-__all__ = ["UMAP", "PCA"]
+__all__ = ["SNE", "TSNE", "UMAP", "PCA"]

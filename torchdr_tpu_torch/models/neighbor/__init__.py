@@ -1,3 +1,4 @@
+from .tsne import SNE, TSNE
 from .umap import UMAP
 
-__all__ = ["UMAP"]
+__all__ = ["SNE", "TSNE", "UMAP"]

@@ -21,7 +21,8 @@ from ...ops.metrics import sq_dists_from_gram
 class NeighborEmbedding(AffinityMatcher):
     r"""Attraction/repulsion neighbor-embedding base.
 
-    gradient = ee_coeff(it) · attractive + repulsion_strength · repulsive.
+    loss = ee_coeff(it) · attractive + repulsion_strength · repulsive (the
+    autograd path), or the same combination of closed-form gradients.
     """
 
     def __init__(
@@ -83,6 +84,17 @@ class NeighborEmbedding(AffinityMatcher):
     def _fit_transform(self, X: torch.Tensor, y=None) -> torch.Tensor:
         self._check_n_neighbors(X.shape[0])
         return super()._fit_transform(X, y)
+
+    def _loss(self, Z, consts, carry, it, ee_coeff):
+        attr, carry = self._attractive_loss(Z, consts, carry, it)
+        rep, carry = self._repulsive_loss(Z, consts, carry, it)
+        return ee_coeff * attr + self.repulsion_strength * rep, carry
+
+    def _attractive_loss(self, Z, consts, carry, it):
+        raise NotImplementedError
+
+    def _repulsive_loss(self, Z, consts, carry, it):
+        raise NotImplementedError
 
     def _gradients(self, Z, consts, carry, it, ee_coeff, neg_ids=None):
         g_attr, carry = self._attractive_gradients(Z, consts, carry, it)

@@ -1,0 +1,166 @@
+"""t-SNE and SNE (counterpart of ``torchdr_tpu/models/neighbor/tsne.py``).
+
+Input affinity: entropic (perplexity-calibrated, over the 3·perplexity
+exact nearest neighbours). Attraction is a cross-entropy over the kNN
+edges; the exact O(n²) repulsion runs through
+``ops/reduce.pairwise_logkernel_rowlse``, whose forward is K2 and whose
+backward is K3 on the card, so no n×n matrix is formed in either pass.
+Gradients come by autograd of the loss. The row-sharded repulsion over a
+device mesh waits for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from ...affinity.entropic import EntropicAffinity
+from ...ops.distance import pairwise_distances_indexed
+from ...ops.reduce import pairwise_logkernel_rowlse
+from ...ops.reductions import cross_entropy_loss
+from .base import NeighborEmbedding
+
+
+class _EntropicNeighborEmbedding(NeighborEmbedding):
+    """Shared set-up of t-SNE and SNE: the entropic input affinity. Its
+    signature is SNE's; t-SNE's differs in the early-exaggeration defaults."""
+
+    def __init__(
+        self,
+        perplexity: float = 30,
+        n_components: int = 2,
+        lr: Union[float, str] = "auto",
+        optimizer: str = "SGD",
+        optimizer_kwargs: Union[Dict, str, None] = "auto",
+        scheduler: Optional[str] = None,
+        scheduler_kwargs: Union[Dict, str, None] = None,
+        init: str = "pca",
+        init_scaling: float = 1e-4,
+        min_grad_norm: float = 1e-7,
+        max_iter: int = 2000,
+        device: str = "auto",
+        verbose: bool = False,
+        random_state: Optional[int] = None,
+        early_exaggeration_coeff: Optional[float] = None,
+        early_exaggeration_iter: Optional[int] = None,
+        max_iter_affinity: int = 100,
+        metric: str = "sqeuclidean",
+        sparsity: bool = True,
+        check_interval: int = 50,
+        knn_mode: str = "exact",
+        knn_precision: str = "highest",
+        block_size: int = 1024,
+        **kwargs,
+    ):
+        self.perplexity = perplexity
+        self.metric = metric
+        self.max_iter_affinity = max_iter_affinity
+        self.sparsity = sparsity
+        self.block_size = block_size
+        self.knn_mode = knn_mode
+        self.knn_precision = knn_precision
+
+        affinity_in = EntropicAffinity(
+            perplexity=perplexity,
+            metric=metric,
+            max_iter=max_iter_affinity,
+            device=device,
+            verbose=verbose,
+            sparsity=sparsity,
+            knn_mode=knn_mode,
+            knn_precision=knn_precision,
+        )
+        super().__init__(
+            affinity_in=affinity_in,
+            n_components=n_components,
+            optimizer=optimizer,
+            optimizer_kwargs=optimizer_kwargs,
+            lr=lr,
+            scheduler=scheduler,
+            scheduler_kwargs=scheduler_kwargs,
+            min_grad_norm=min_grad_norm,
+            max_iter=max_iter,
+            init=init,
+            init_scaling=init_scaling,
+            device=device,
+            verbose=verbose,
+            random_state=random_state,
+            early_exaggeration_coeff=early_exaggeration_coeff,
+            early_exaggeration_iter=early_exaggeration_iter,
+            check_interval=check_interval,
+            **kwargs,
+        )
+
+    def _knn_sq_dists(self, Z, consts):
+        return pairwise_distances_indexed(Z, key_indices=consts["NN"], metric="sqeuclidean")
+
+
+class TSNE(_EntropicNeighborEmbedding):
+    """t-SNE (van der Maaten & Hinton 2008).
+
+    Defaults follow the JAX package: lr="auto", SGD with "auto" momentum
+    (0.5, then 0.8), early exaggeration 12.0 for 250 iterations, PCA init.
+    """
+
+    def __init__(
+        self,
+        perplexity: float = 30,
+        n_components: int = 2,
+        lr: Union[float, str] = "auto",
+        optimizer: str = "SGD",
+        optimizer_kwargs: Union[Dict, str, None] = "auto",
+        scheduler: Optional[str] = None,
+        scheduler_kwargs: Union[Dict, str, None] = None,
+        init: str = "pca",
+        init_scaling: float = 1e-4,
+        min_grad_norm: float = 1e-7,
+        max_iter: int = 2000,
+        device: str = "auto",
+        verbose: bool = False,
+        random_state: Optional[int] = None,
+        early_exaggeration_coeff: float = 12.0,
+        early_exaggeration_iter: int = 250,
+        max_iter_affinity: int = 100,
+        metric: str = "sqeuclidean",
+        sparsity: bool = True,
+        check_interval: int = 50,
+        knn_mode: str = "exact",
+        knn_precision: str = "highest",
+        block_size: int = 1024,
+        **kwargs,
+    ):
+        super().__init__(
+            perplexity=perplexity, n_components=n_components, lr=lr, optimizer=optimizer,
+            optimizer_kwargs=optimizer_kwargs, scheduler=scheduler,
+            scheduler_kwargs=scheduler_kwargs, init=init, init_scaling=init_scaling,
+            min_grad_norm=min_grad_norm, max_iter=max_iter, device=device, verbose=verbose,
+            random_state=random_state, early_exaggeration_coeff=early_exaggeration_coeff,
+            early_exaggeration_iter=early_exaggeration_iter,
+            max_iter_affinity=max_iter_affinity, metric=metric, sparsity=sparsity,
+            check_interval=check_interval, knn_mode=knn_mode, knn_precision=knn_precision,
+            block_size=block_size, **kwargs,
+        )
+
+    def _attractive_loss(self, Z, consts, carry, it):
+        """Cross-entropy of P against the student log-kernel on the kNN edges."""
+        log_Q = -torch.log1p(self._knn_sq_dists(Z, consts))
+        return cross_entropy_loss(consts["P"], log_Q, log=True), carry
+
+    def _repulsive_loss(self, Z, consts, carry, it):
+        """log Σ_ij (1 + d²_ij)⁻¹ over all pairs i ≠ j (K2 forward, K3 backward)."""
+        row_lse = pairwise_logkernel_rowlse(Z, "student", True, self.block_size)
+        return torch.logsumexp(row_lse, dim=0), carry
+
+
+class SNE(_EntropicNeighborEmbedding):
+    """Stochastic Neighbor Embedding (Hinton & Roweis 2002): gaussian output
+    kernel, row-wise log-normalization."""
+
+    def _attractive_loss(self, Z, consts, carry, it):
+        return cross_entropy_loss(consts["P"], -self._knn_sq_dists(Z, consts), log=True), carry
+
+    def _repulsive_loss(self, Z, consts, carry, it):
+        """(1/n) Σ_i log Σ_{j≠i} e^(−d²_ij) (K2 forward, K3 backward)."""
+        row_lse = pairwise_logkernel_rowlse(Z, "gaussian", True, self.block_size)
+        return torch.sum(row_lse) / consts["n"], carry

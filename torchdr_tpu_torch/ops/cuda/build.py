@@ -40,6 +40,8 @@ SIGNATURES = {
         "umap_shared_repulsion",
         [_V, _V, _V, _V, _V, _I, _I, _I, _F, _F, _F, _V],
     ),
+    "rowlse_fwd": ("rowlse_fwd", [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
+    "rowlse_bwd": ("rowlse_bwd", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V]),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

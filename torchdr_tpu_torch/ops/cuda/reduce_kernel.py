@@ -1,0 +1,204 @@
+"""K2 and K3: the row log-sum of the pairwise embedding kernel, and its
+recomputing backward.
+
+Replace the TPU kernels ``torchdr_tpu/ops/pallas/reduce_kernel.py``
+(``rowlse_fwd_pallas_general`` and ``rowlse_bwd_pallas_general``, through
+their square wrappers ``rowlse_fwd_pallas`` and ``rowlse_bwd_pallas``). The
+CUDA sources are ``ops/csrc/rowlse_fwd.cu`` and ``ops/csrc/rowlse_bwd.cu``;
+their notes give the bound on the card (the n² pairs' arithmetic, never
+memory) and what the design does about it (column chunks across blocks so
+that the grid fills the card, staged tiles in shared memory, float32 tile
+sums into float64 accumulators, no n×n array).
+
+For Z (n, d) and the student kernel k = 1/(1+d²) or the gaussian
+k = e^(−d²):
+
+- :func:`rowlse_fwd` gives out_i = log Σ_{j≠i} k(‖z_i − z_j‖²) (the diagonal
+  kept when ``exclude_diag`` is False), exact for any spread in the
+  gaussian mode, as the JAX package's XLA tier is;
+- :func:`rowlse_bwd` gives, for the forward's output ``row_lse`` and its
+  cotangent ``g``, dZ_m = 2 Σ_{j≠m} (c_mj + c_jm)(z_m − z_j) with
+  c_ij = −g_i e^(−lse_i) q_ij² (student) or −g_i e^(−d²_ij − lse_i)
+  (gaussian): the TPU kernel's dZq + dZdb, for Zq = Zdb = Z.
+
+Each launches its kernel for a CUDA tensor and takes its plain version
+(:func:`rowlse_fwd_plain`, :func:`rowlse_bwd_plain`: the JAX package's
+blockwise XLA tier, by direct differences as the kernels form them) only
+for a CPU tensor. Each counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from .build import load_function
+
+#: largest embedding width the kernels are instantiated for
+MAX_D = 8
+KERNELS = ("student", "gaussian")
+
+_ROWS_PER_BLOCK = 128  # kThreads of both sources: one row per thread
+_TILE = 256  # kTile: columns staged per shared-memory tile
+_RESIDENT_BLOCKS_PER_SM = 16  # 2,048 resident threads per SM / 128
+
+
+def _check_z(Z, kernel):
+    if kernel not in KERNELS:
+        raise ValueError(f"[TorchDR-Torch] unknown kernel {kernel!r}; expected one of {KERNELS}.")
+    if Z.ndim != 2 or Z.dtype != torch.float32:
+        raise ValueError(f"Z must be a 2D float32 tensor, got {Z.dtype} {tuple(Z.shape)}.")
+    if not Z.is_contiguous():
+        raise ValueError("Z must be contiguous.")
+
+
+def _check_vec(name, v, Z):
+    if v.shape != (Z.shape[0],) or v.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 of shape ({Z.shape[0]},).")
+    if v.device != Z.device or not v.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on Z's device.")
+
+
+def _check_cuda(Z, fn_name):
+    if Z.device.type != "cuda":
+        raise ValueError(f"{fn_name}: unsupported device {Z.device}.")
+    if not 1 <= Z.shape[1] <= MAX_D:
+        raise ValueError(f"{fn_name} takes 1 <= d <= {MAX_D} on the card, got d={Z.shape[1]}.")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def column_chunks(n: int, sm_count: int):
+    """(n_chunks, chunk): split the n columns so that the (row tiles x
+    column chunks) grid is about one full wave of resident blocks, with at
+    least one staged tile per chunk."""
+    row_tiles = -(-n // _ROWS_PER_BLOCK)
+    target = sm_count * _RESIDENT_BLOCKS_PER_SM
+    n_chunks = max(1, min(-(-target // row_tiles), -(-n // _TILE)))
+    chunk = -(-n // n_chunks)
+    return -(-n // chunk), chunk
+
+
+def _sq_block(Zb, Z):
+    """(block, n) squared distances and (block, n, d) differences, summed
+    over the coordinates in the kernels' order."""
+    diff = Zb[:, None, :] - Z[None, :, :]
+    sq = diff[..., 0] * diff[..., 0]
+    for c in range(1, Z.shape[1]):
+        sq = sq + diff[..., c] * diff[..., c]
+    return sq, diff
+
+
+def _diag(r0, b, n, device):
+    rows = torch.arange(r0, r0 + b, device=device)
+    return rows[:, None] == torch.arange(n, device=device)[None, :]
+
+
+def rowlse_fwd_plain(Z, kernel="student", exclude_diag=True, block_size=1024):
+    """K2's function in plain PyTorch: the JAX package's blockwise XLA tier
+    (row blocks, log-kernel, max-shifted log-sum-exp), O(block · n) memory,
+    with the sums over j in float64."""
+    n = Z.shape[0]
+    block = min(block_size, max(8, n))
+    out = torch.empty((n,), dtype=Z.dtype, device=Z.device)
+    for r0 in range(0, n, block):
+        Zb = Z[r0 : r0 + block]
+        sq, _ = _sq_block(Zb, Z)
+        logq = -torch.log1p(sq) if kernel == "student" else -sq
+        if exclude_diag:
+            mask = _diag(r0, Zb.shape[0], n, Z.device)
+            logq = torch.where(mask, torch.full_like(logq, float("-inf")), logq)
+        m = torch.amax(logq, dim=1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # a row with no term
+        s = torch.exp(logq - m).double().sum(dim=1)
+        out[r0 : r0 + block] = (torch.log(s) + m[:, 0].double()).float()
+    return out
+
+
+def rowlse_bwd_plain(Z, row_lse, g, kernel="student", block_size=1024):
+    """K3's function in plain PyTorch, over row blocks: the products in
+    float32 as the kernel forms them, the sums over j in float64."""
+    n = Z.shape[0]
+    block = min(block_size, max(8, n))
+    u = -(g * torch.exp(-row_lse)) if kernel == "student" else g
+    out = torch.empty_like(Z)
+    for r0 in range(0, n, block):
+        Zb = Z[r0 : r0 + block]
+        b = Zb.shape[0]
+        sq, diff = _sq_block(Zb, Z)
+        if kernel == "student":
+            q = 1.0 / (1.0 + sq)
+            coef = (u[r0 : r0 + b, None] + u[None, :]) * (q * q)
+        else:
+            lse_b = row_lse[r0 : r0 + b, None]
+            coef = -(g[r0 : r0 + b, None] * torch.exp(-sq - lse_b)
+                     + g[None, :] * torch.exp(-sq - row_lse[None, :]))
+        coef = torch.where(_diag(r0, b, n, Z.device), torch.zeros_like(coef), coef)
+        out[r0 : r0 + b] = (2.0 * (coef[:, :, None] * diff).double().sum(dim=1)).float()
+    return out
+
+
+def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
+    """Row log-sum of the pairwise kernel: (n,) float32.
+
+    ``block_size`` sets the row blocks of the plain version; the kernel
+    chooses its own grid (:func:`column_chunks`).
+    """
+    _check_z(Z, kernel)
+    if Z.device.type == "cpu":
+        return rowlse_fwd_plain(Z, kernel, exclude_diag, block_size)
+    _check_cuda(Z, "rowlse_fwd")
+    fn = load_function("rowlse_fwd")
+    n, d = Z.shape
+    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index))
+    out = torch.empty((n,), dtype=torch.float32, device=Z.device)
+    part_s = torch.empty((n_chunks, n), dtype=torch.float64, device=Z.device)
+    part_m = torch.empty((n_chunks, n), dtype=torch.float32, device=Z.device)
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    with torch.cuda.device(Z.device):
+        rc = fn(
+            Z.data_ptr(), out.data_ptr(), part_s.data_ptr(), part_m.data_ptr(),
+            n, d, n_chunks, chunk, int(kernel == "gaussian"), int(bool(exclude_diag)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rowlse_fwd launch failed: cudaError {rc}.")
+    rowlse_fwd.launches += 1
+    return out
+
+
+def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
+    """Gradient of Σ_i g_i · rowlse_fwd(Z)_i with respect to Z: (n, d).
+
+    The diagonal term carries z_m − z_m = 0, so the forward's
+    ``exclude_diag`` does not enter. ``block_size`` sets the row blocks of
+    the plain version.
+    """
+    _check_z(Z, kernel)
+    _check_vec("row_lse", row_lse, Z)
+    _check_vec("g", g, Z)
+    if Z.device.type == "cpu":
+        return rowlse_bwd_plain(Z, row_lse, g, kernel, block_size)
+    _check_cuda(Z, "rowlse_bwd")
+    fn = load_function("rowlse_bwd")
+    n, d = Z.shape
+    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index))
+    out = torch.empty_like(Z)
+    part = torch.empty((n_chunks, n, d), dtype=torch.float64, device=Z.device)
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    with torch.cuda.device(Z.device):
+        rc = fn(
+            Z.data_ptr(), row_lse.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
+            n, d, n_chunks, chunk, int(kernel == "gaussian"), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"rowlse_bwd launch failed: cudaError {rc}.")
+    rowlse_bwd.launches += 1
+    return out
+
+
+rowlse_fwd.launches = 0
+rowlse_bwd.launches = 0

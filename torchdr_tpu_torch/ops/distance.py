@@ -3,6 +3,7 @@
 Counterpart of ``torchdr_tpu/ops/distance.py``:
 
 - :func:`pairwise_distances` — dense distances, optional top-k selection.
+- :func:`pairwise_distances_indexed` — distances to indexed keys.
 - :func:`knn_graph` — exact kNN over row blocks (O(block · m) memory), one
   float32 matrix product and one ``torch.topk`` per block, with a running
   top-k merge over column chunks for large databases.
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .metrics import MASK_VALUE, check_metric, pairwise_block
+from .metrics import MASK_VALUE, check_metric, indexed_block, pairwise_block
 
 
 def pairwise_distances(
@@ -39,6 +40,34 @@ def pairwise_distances(
     if k is None:
         return C, None
     return torch.topk(C, k, dim=1, largest=False, sorted=True)
+
+
+def pairwise_distances_indexed(
+    X: torch.Tensor,
+    query_indices: Optional[torch.Tensor] = None,
+    key_indices: Optional[torch.Tensor] = None,
+    Y: Optional[torch.Tensor] = None,
+    metric: str = "sqeuclidean",
+) -> torch.Tensor:
+    """Distances between indexed subsets of X / Y.
+
+    - ``key_indices`` 2D ``(n_q, k)``: per-query keys, returns ``(n_q, k)``;
+      negative (padding) ids are clamped to 0 for the gather, and the caller
+      masks those entries.
+    - ``key_indices`` 1D: shared keys for all queries, ``(n_q, len)``.
+    - ``key_indices`` None: all rows of Y (or X) are keys.
+    """
+    if Y is None:
+        Y = X
+    Xq = X if query_indices is None else X[query_indices]
+    if key_indices is None:
+        return pairwise_block(Xq, Y, metric)
+    if key_indices.ndim == 1:
+        return pairwise_block(Xq, Y[key_indices], metric)
+    if key_indices.ndim != 2:
+        raise ValueError(f"key_indices must be 1D or 2D, got {key_indices.ndim}D")
+    Yk = Y[torch.clamp(key_indices, min=0).long()]  # (n_q, k, d)
+    return indexed_block(Xq, Yk, metric)
 
 
 def _mask_self(C: torch.Tensor, row0: int, col0: int) -> None:

@@ -1,12 +1,55 @@
-"""Small reductions and linear-algebra helpers.
+"""Losses, reductions and small linear-algebra helpers.
 
-Counterpart of the parts of ``torchdr_tpu/ops/reductions.py`` that the UMAP
-path reaches: the SVD sign convention and k-smallest/largest selection.
+Counterpart of the parts of ``torchdr_tpu/ops/reductions.py`` that the
+ported paths reach: the cross-entropy loss, the row entropy, the
+(masked) logsumexp and sum reductions, the SVD sign convention and
+k-smallest/largest selection. The O(n²) streaming reductions live in
+``ops/reduce.py``.
 """
 
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
+
+Dim = Union[int, Tuple[int, ...], None]
+
+
+def cross_entropy_loss(P: torch.Tensor, Q: torch.Tensor, log: bool = False) -> torch.Tensor:
+    """H(P, Q) = -sum(P * log Q); with ``log=True`` Q holds log-probabilities."""
+    if log:
+        return -torch.sum(P * Q)
+    return -torch.sum(P * torch.log(Q))
+
+
+def entropy(P: torch.Tensor, log: bool = True, dim: int = 1) -> torch.Tensor:
+    """Row-wise Shannon entropy h(p) = -sum p (log p - 1)."""
+    if log:
+        return -torch.sum(torch.exp(P) * (P - 1.0), dim=dim)
+    return -torch.sum(P * (torch.log(P) - 1.0), dim=dim)
+
+
+def _dims(dim: Dim, ndim: int):
+    return tuple(range(ndim)) if dim is None else dim
+
+
+def logsumexp_red(logP: torch.Tensor, dim: Dim = 1, keepdims: bool = True) -> torch.Tensor:
+    """logsumexp reduction; keepdims so results broadcast against (n, k) arrays."""
+    return torch.logsumexp(logP, dim=_dims(dim, logP.ndim), keepdim=keepdims)
+
+
+def sum_red(P: torch.Tensor, dim: Dim = 1, keepdims: bool = True) -> torch.Tensor:
+    return torch.sum(P, dim=_dims(dim, P.ndim), keepdim=keepdims)
+
+
+def masked_logsumexp(
+    logP: torch.Tensor, mask: torch.Tensor, dim: Dim = 1, keepdims: bool = True
+) -> torch.Tensor:
+    """logsumexp over the entries where ``mask`` holds (padded (n, k)
+    affinities pass ``mask = indices >= 0``)."""
+    neg_inf = torch.full_like(logP, float("-inf"))
+    return logsumexp_red(torch.where(mask, logP, neg_inf), dim=dim, keepdims=keepdims)
 
 
 def svd_flip(u: torch.Tensor, v: torch.Tensor, u_based_decision: bool = True):

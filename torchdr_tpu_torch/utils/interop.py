@@ -15,11 +15,15 @@ import torch
 
 from ..base import resolve_device
 
-#: keys of ``arrays`` and the estimator attribute each one fills
+#: keys of ``arrays`` and the estimator attribute each one fills: a
+#: t-SNE/SNE fit's pre-loop state, to which a UMAP fit's adds the optional
+#: ones
 _STATE = {
     "affinity_in": "affinity_in_",
     "NN_indices": "NN_indices_",
     "init_embedding": "init_embedding_",
+}
+_OPTIONAL_STATE = {
     "neg_exclusion": "neg_exclusion_",
     "neg_valid_counts": "neg_valid_counts_",
 }
@@ -29,21 +33,24 @@ def load_reference_state(estimator, arrays: Mapping[str, object]) -> None:
     """Install a reference fit's pre-loop state in ``estimator``.
 
     ``arrays`` holds numpy arrays under "affinity_in" and "NN_indices"
-    (after pruning), "init_embedding", "neg_exclusion" and
-    "neg_valid_counts", and the floats "a" and "b". The tensors land on
-    the estimator's device; ``n_samples_in_`` and a root generator are set
-    as a fit would set them.
+    (after pruning, for UMAP) and "init_embedding"; a UMAP state adds the
+    arrays "neg_exclusion" and "neg_valid_counts" and the floats "a" and
+    "b". The tensors land on the estimator's device; ``n_samples_in_`` and
+    a root generator are set as a fit would set them.
     """
     device = resolve_device(estimator.device)
     estimator.device_ = device
-    for key, attr in _STATE.items():
+    for key, attr in {**_STATE, **_OPTIONAL_STATE}.items():
+        if key not in arrays and key in _OPTIONAL_STATE:
+            continue
         arr = np.asarray(arrays[key])
         if arr.dtype.kind == "f":
             arr = arr.astype(np.float32)
         else:
             arr = arr.astype(np.int64)
         setattr(estimator, attr, torch.from_numpy(np.ascontiguousarray(arr)).to(device))
-    estimator._a = float(arrays["a"])
-    estimator._b = float(arrays["b"])
+    for key in ("a", "b"):
+        if key in arrays:
+            setattr(estimator, f"_{key}", float(arrays[key]))
     estimator.n_samples_in_ = int(estimator.affinity_in_.shape[0])
     estimator._generator_ = estimator._root_generator()
