@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
    ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
    10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
    10-NN label accuracy of the embedding;
-5. with ``--profile`` only: device time by kernel and the device's idle
+5. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels
+   (``cuobjdump -res-usage``) and the instruction counts of the d = 2
+   kernels' inner loops (``cuobjdump -sass``);
+6. with ``--profile`` only: device time by kernel and the device's idle
    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
    (torch.profiler).
 
@@ -38,6 +41,7 @@ import numpy as np
 
 N, D_IN, N_CLUSTERS, SEED = 60_000, 784, 50, 0
 N_TSNE = 10_000  # the exact t-SNE/SNE paths' size
+N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
 S_MAIN = 512  # shared negatives of the UMAP path at n = 60k
 TOL = 1e-5  # K1, max |kernel - plain|: same arithmetic, float64 sums in both
 # K2: |kernel - plain| <= TOL_K2 * max(1, |plain|). Float32 tile sums of at
@@ -51,6 +55,9 @@ TOL_K2 = 1e-5
 TOL_K3 = 1e-4
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
+# special-function unit (reciprocal, exp2): 16 results per clock per SM, 132
+# SMs at the 1.98 GHz boost clock
+H100_SFU_PER_S = 16 * 132 * 1.98e9
 
 
 def nvidia_smi_line() -> str:
@@ -74,6 +81,67 @@ def cuda_time_ms(fn, reps: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of one call of ``fn``, replayed from a CUDA graph of
+    ``calls`` calls: no host time between the launches."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(graph.replay, reps) / calls
+
+
+def sass_report(libraries) -> None:
+    """For each built library: the registers and stack of its d = 2 and d = 3
+    kernels (``cuobjdump -res-usage``), and each innermost loop (a backward
+    branch with no loop inside) of its d = 2 kernels with its instruction
+    count by opcode (``cuobjdump -sass``). A loop's instructions over the
+    pairs one iteration evaluates are the issue slots a pair costs."""
+    import collections
+    import re
+
+    def label(mangled):
+        m = re.search(r"\d\d((?:rowlse|repulsion)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
+        if m is None:
+            return mangled
+        mode = {"0": ", student", "1": ", gaussian", None: ""}[m.group(3)]
+        return f"{m.group(1)}<d={m.group(2)}{mode}>"
+
+    for lib in libraries:
+        print(f"== {lib.name}")
+        for flag in ("-res-usage", "-sass"):
+            text = subprocess.run(["cuobjdump", flag, str(lib)], capture_output=True, text=True,
+                                  check=True).stdout
+            if flag == "-res-usage":
+                for name, regs, stack in re.findall(
+                        r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", text):
+                    if "ILi2E" in name or "ILi3E" in name:
+                        print(f"{label(name)}: {regs} registers, stack {stack}")
+                continue
+            for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", text, re.S):
+                if "ILi2E" not in name:
+                    continue
+                instrs = [(int(a, 16), re.sub(r"^@!?U?P\d+\s+", "", t))
+                          for a, t in re.findall(r"/\*([0-9a-f]{4})\*/\s+(.*?);", body)]
+                loops = [(int(m.group(1), 16), a) for a, t in instrs if t.startswith("BRA")
+                         for m in [re.search(r"0x([0-9a-f]+)", t)] if m and int(m.group(1), 16) <= a]
+                for lo, hi in loops:
+                    if any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops):
+                        continue
+                    ops = collections.Counter(
+                        t.split()[0] if t.startswith("MUFU") else t.split()[0].split(".")[0]
+                        for a, t in instrs if lo <= a <= hi)
+                    print(f"{label(name)}: loop {lo:#x}-{hi:#x}, {sum(ops.values())} "
+                          f"instructions {dict(ops.most_common())}")
 
 
 def k1_bound_ms(n: int, S: int, d: int) -> tuple:
@@ -170,9 +238,20 @@ def rowlse_bound_ms(n: int, d: int, which: str, kernel: str) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sfu_floor_ms(n: int, which: str, kernel: str) -> float:
+    """Least time of K2 and K3 as they are built: each of the n² ordered
+    pairs evaluated, with the special-function calls (reciprocal, exp2) the
+    design makes per pair: one, but a half in K2's student mode (one
+    reciprocal serves two columns) and two in K3's gaussian mode (one
+    exp(-d² - lse) per weight). It lies above ``rowlse_bound_ms``, which
+    counts unordered pairs at the float32 rate."""
+    calls = {("K2", "student"): 0.5, ("K3", "gaussian"): 2.0}.get((which, kernel), 1.0)
+    return n * n * calls / H100_SFU_PER_S * 1e3
+
+
 def check_k2_k3(torch, gen) -> tuple:
-    """K2 and K3 against their plain versions on the card; times at the
-    t-SNE path's shape (n = 10,000, d = 2, student)."""
+    """K2 and K3 against their plain versions on the card, then their
+    times (:func:`time_k2_k3`)."""
     from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
         rowlse_bwd,
         rowlse_bwd_plain,
@@ -230,38 +309,95 @@ def check_k2_k3(torch, gen) -> tuple:
         worst["K2"] = max(worst["K2"], e2)
         worst["K3"] = max(worst["K3"], e3)
 
-    n, d, kernel = N_TSNE, 2, "student"
-    Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
-    lse = rowlse_fwd_plain(Z, kernel)
-    g = torch.softmax(lse, 0)
-    records = []
-    for which, fn, plain, src, line, name in (
-        ("K2", lambda: rowlse_fwd(Z, kernel), lambda: rowlse_fwd_plain(Z, kernel),
-         "torchdr_tpu_torch/ops/csrc/rowlse_fwd.cu", 105, "rowlse_fwd (K2)"),
-        ("K3", lambda: rowlse_bwd(Z, lse, g, kernel), lambda: rowlse_bwd_plain(Z, lse, g, kernel),
-         "torchdr_tpu_torch/ops/csrc/rowlse_bwd.cu", 230, "rowlse_bwd (K3)"),
-    ):
-        ms = cuda_time_ms(fn, reps=100)
-        plain_ms = cuda_time_ms(plain, reps=5)
-        bound_ms, bound_by = rowlse_bound_ms(n, d, which, kernel)
-        print(
-            f"{which} time n={n} d={d} {kernel}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by})",
-            flush=True,
-        )
-        records.append({
-            "name": name,
-            "route": "cuda",
-            "source": src,
-            "replaces": f"torchdr_tpu/ops/pallas/reduce_kernel.py:{line}",
-            "launches": None,
-            "max_abs_err": worst[which],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes this function
-        })
+    return time_k2_k3(torch, gen, worst)
+
+
+def time_k2_k3(torch, gen, worst) -> tuple:
+    """K2's and K3's times at d = 2 in both modes: at the t-SNE path's size
+    (n = 10,000; the plain versions timed beside them) and at n = 50,000,
+    where the device and not the host would bound a step (kernels timed;
+    each compared with its plain version once, that one call timed). A
+    kernel's time is that of the eager call, as the fit makes it, over many
+    calls; at n = 10,000 the host's time to enqueue a call is of the same
+    order, so the device time of the call replayed from a CUDA graph stands
+    beside it. The two records are the student mode's at n = 10,000."""
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+        rowlse_bwd,
+        rowlse_bwd_plain,
+        rowlse_fwd,
+        rowlse_fwd_plain,
+    )
+
+    dev = torch.device("cuda")
+    d = 2
+    sources = {
+        "K2": ("torchdr_tpu_torch/ops/csrc/rowlse_fwd.cu", 105, "rowlse_fwd (K2)"),
+        "K3": ("torchdr_tpu_torch/ops/csrc/rowlse_bwd.cu", 230, "rowlse_bwd (K3)"),
+    }
+    records, times = [], []
+    for n in (N_TSNE, N_LARGE):
+        for kernel in ("student", "gaussian"):
+            Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            lse = rowlse_fwd_plain(Z, kernel)
+            end.record()
+            torch.cuda.synchronize()
+            once = {"K2": start.elapsed_time(end)}
+            g = torch.softmax(lse, 0) if kernel == "student" else torch.full_like(lse, 1.0 / n)
+            start.record()
+            dZ_ref = rowlse_bwd_plain(Z, lse, g, kernel)
+            end.record()
+            torch.cuda.synchronize()
+            once["K3"] = start.elapsed_time(end)
+            e2 = float((rowlse_fwd(Z, kernel) - lse).abs().max())
+            e3 = float((rowlse_bwd(Z, lse, g, kernel) - dZ_ref).abs().max())
+            lim2 = TOL_K2 * max(1.0, float(lse.abs().max()))
+            lim3 = TOL_K3 * float(dZ_ref.abs().max())
+            if not e2 <= lim2:
+                raise AssertionError(f"K2 n={n} {kernel}: max abs err {e2} > {lim2}")
+            if not e3 <= lim3:
+                raise AssertionError(f"K3 n={n} {kernel}: max abs err {e3} > {lim3}")
+            del dZ_ref
+            for which, fn, plain, err, lim in (
+                ("K2", lambda: rowlse_fwd(Z, kernel), lambda: rowlse_fwd_plain(Z, kernel), e2, lim2),
+                ("K3", lambda: rowlse_bwd(Z, lse, g, kernel),
+                 lambda: rowlse_bwd_plain(Z, lse, g, kernel), e3, lim3),
+            ):
+                ms = cuda_time_ms(fn, reps=100 if n == N_TSNE else 20)
+                device_ms = graph_ms(fn)
+                # the plain version: repeated at the path's size, the one
+                # comparison call at the large size
+                plain_ms = cuda_time_ms(plain, reps=5) if n == N_TSNE else once[which]
+                bound_ms, bound_by = rowlse_bound_ms(n, d, which, kernel)
+                floor_ms = sfu_floor_ms(n, which, kernel)
+                print(
+                    f"{which} time n={n} d={d} {kernel}: kernel {ms:.4f} ms ({device_ms:.4f} ms "
+                    f"replayed from a CUDA graph), plain {plain_ms:.4f} ms, "
+                    f"bound {bound_ms:.5f} ms ({bound_by}), special-function floor of ordered "
+                    f"pairs {floor_ms:.5f} ms, max|kernel-plain|={err:.3e} (limit {lim:.1e})",
+                    flush=True,
+                )
+                times.append({"kernel": which, "n": n, "d": d, "mode": kernel, "ms": ms,
+                              "device_ms": device_ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "sfu_floor_ms": floor_ms, "max_abs_err": err})
+                if n == N_TSNE and kernel == "student":
+                    src, line, name = sources[which]
+                    records.append({
+                        "name": name,
+                        "route": "cuda",
+                        "source": src,
+                        "replaces": f"torchdr_tpu/ops/pallas/reduce_kernel.py:{line}",
+                        "launches": None,
+                        "max_abs_err": max(worst[which], err),
+                        "ms": ms,
+                        "plain_ms": plain_ms,
+                        "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "library_ms": None,  # no single PyTorch call computes this function
+                    })
+    print("rowlse_times " + json.dumps(times), flush=True)
     return tuple(records)
 
 
@@ -399,6 +535,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build_libraries()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--sass" in sys.argv[1:]:
+        sass_report(libs)
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")

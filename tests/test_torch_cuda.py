@@ -13,11 +13,13 @@ import torch
 
 from torchdr_tpu_torch import TSNE, UMAP
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+    rows_per_block,
     rowlse_bwd,
     rowlse_bwd_plain,
     rowlse_fwd,
     rowlse_fwd_plain,
 )
+from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse
 from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion, shared_repulsion_plain
 
 A, B, EPS = 1.577, 0.8951, 1e-3
@@ -65,28 +67,92 @@ def test_fit_on_the_card_launches_k1_every_step(cuda):
     assert Z.shape == (2000, 2) and np.all(np.isfinite(Z))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["student", "gaussian"])
-@pytest.mark.parametrize("n, d", [(5003, 2), (777, 3), (1, 2), (130, 8)])
-def test_k2_k3_kernels_match_plain(cuda, kernel, n, d):
-    """K2: 1e-5 of max(1, |lse|) (float32 tile sums against one float64 sum
-    of the same float32 terms); K3: 1e-4 of max |dZ| (the same products,
-    summed in float32 tiles then float64, against float64)."""
-    rng = np.random.default_rng(n + d)
-    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+def _hold_k2_k3_to_plain(Z, kernel):
+    """K2 (the diagonal excluded and kept) and K3 against their plain
+    versions. K2: 1e-5 of max(1, |lse|) (float32 tile sums, an approximate
+    reciprocal or exp2 of 1-2 ulp, against one float64 sum of float32
+    terms); K3: 1e-4 of max |dZ| (the same products, fused and summed in
+    float32 tiles then float64, against float64)."""
     before = (rowlse_fwd.launches, rowlse_bwd.launches)
-    lse = rowlse_fwd(Z, kernel)
-    want = rowlse_fwd_plain(Z, kernel)
-    if n == 1:  # a row with no term: -inf in both, and a zero gradient
-        assert torch.isneginf(lse).all() and torch.isneginf(want).all()
+    for exclude_diag in (False, True):
+        lse = rowlse_fwd(Z, kernel, exclude_diag)
+        want = rowlse_fwd_plain(Z, kernel, exclude_diag)
+        if Z.shape[0] == 1 and exclude_diag:  # a row with no term: -inf in both
+            assert torch.isneginf(lse).all() and torch.isneginf(want).all()
+        else:
+            assert torch.isfinite(lse).all()
+            assert float((lse - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    if Z.shape[0] == 1:  # ... and a zero gradient, though exp(-lse) is infinite
         assert float(rowlse_bwd(Z, want, torch.ones_like(want), kernel).abs().max()) == 0.0
         return
-    assert float((lse - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
     g = torch.softmax(want, 0)
     got = rowlse_bwd(Z, want, g, kernel)
     ref = rowlse_bwd_plain(Z, want, g, kernel)
-    assert (rowlse_fwd.launches, rowlse_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (rowlse_fwd.launches, rowlse_bwd.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("n", ["1", "2", "tile-1", "tile", "tile+1", "5003"])
+def test_k2_k3_kernels_match_plain(cuda, kernel, n, d):
+    """The ragged edges of the tiling: a block owns ``rows_per_block(d)``
+    rows (a register tile of 4 or 2 rows per thread), so n one under, at and
+    one over it, the smallest n, and a ragged n of several row tiles."""
+    tile = rows_per_block(d)
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(n) or int(n)
+    rng = np.random.default_rng(n + d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    _hold_k2_k3_to_plain(Z, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [2, 3, 8])
+def test_k2_k3_rows_straddle_diagonal_tiles(cuda, kernel, d):
+    """n of a little over two row tiles: the column chunks and their
+    256-column tiles start and end inside the row tiles, so every row tile
+    meets masked and unmasked tiles, and the last one is ragged."""
+    n = 2 * rows_per_block(d) + 300
+    rng = np.random.default_rng(d)
+    Z = torch.from_numpy((2.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    _hold_k2_k3_to_plain(Z, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_k2_k3_duplicate_rows(cuda, kernel):
+    """Duplicate rows: d² = 0 off the diagonal, where only the index, not
+    the distance, tells the diagonal term from a neighbour's."""
+    rng = np.random.default_rng(11)
+    base = (2.0 * rng.normal(size=(700, 2))).astype(np.float32)
+    Z = torch.from_numpy(np.concatenate([base, base[:400], base[:50]])).to(cuda)
+    _hold_k2_k3_to_plain(Z, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("reduction", ["logsumexp", "mean"])
+def test_rowlse_gradient_on_the_card_matches_plain(cuda, kernel, reduction):
+    """``pairwise_logkernel_rowlse`` through ``torch.autograd.grad``: K2 and
+    K3 on the card against the plain versions, which the same Function takes
+    for a CPU tensor. 1e-4 of the largest entry, K3's tolerance."""
+    rng = np.random.default_rng(12)
+    Z = (2.0 * rng.normal(size=(3001, 2))).astype(np.float32)
+
+    def grad(Zt):
+        Zt = Zt.requires_grad_(True)
+        rows = pairwise_logkernel_rowlse(Zt, kernel)
+        loss = torch.logsumexp(rows, 0) if reduction == "logsumexp" else rows.mean()
+        return torch.autograd.grad(loss, Zt)[0]
+
+    before = (rowlse_fwd.launches, rowlse_bwd.launches)
+    got = grad(torch.from_numpy(Z).to(cuda)).cpu()
+    assert (rowlse_fwd.launches, rowlse_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = grad(torch.from_numpy(Z))
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.cuda

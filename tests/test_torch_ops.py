@@ -83,6 +83,21 @@ def test_knn_graph_exact_matches_jax(db_block):
         assert set(got_i[r]) == set(want_i[r])
 
 
+@pytest.mark.parametrize("db_block", [65_536, 256])
+def test_knn_graph_exact_matches_jax_in_float64(db_block):
+    """The same comparison with the JAX function evaluated in float64 on the
+    same inputs, at the same rtol 1e-5 (see
+    ``test_pairwise_block_matches_jax``)."""
+    X = np.random.default_rng(2).normal(size=(1500, 32)).astype(np.float32)
+    with jax.enable_x64(True):
+        want_d, want_i = jax_knn_graph(jnp.asarray(X, jnp.float64), k=15, mode="exact")
+        want_d, want_i = np.asarray(want_d), np.asarray(want_i)
+    assert want_d.dtype == np.float64
+    got_d, got_i = knn_graph(torch.from_numpy(X), k=15, mode="exact", db_block=db_block)
+    np.testing.assert_allclose(got_d.numpy(), want_d, rtol=1e-5)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)  # no near-ties in these data
+
+
 def test_knn_graph_approx_maps_to_exact():
     X = _clustered(400, 16, seed=3)
     Xt = torch.from_numpy(X)
@@ -175,6 +190,22 @@ def test_pairwise_distances_topk_matches_jax():
     gd, gi = pairwise_distances(torch.from_numpy(X), k=5, exclude_diag=True)
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5)
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def test_pairwise_distances_topk_matches_jax_in_float64():
+    """As above with the JAX function evaluated in float64, at the same
+    rtol 1e-5."""
+    from torchdr_tpu.ops.distance import pairwise_distances as jax_pairwise_distances
+    from torchdr_tpu_torch.ops.distance import pairwise_distances
+
+    X = np.random.default_rng(9).normal(size=(200, 12)).astype(np.float32)
+    with jax.enable_x64(True):
+        wd, wi = jax_pairwise_distances(jnp.asarray(X, jnp.float64), k=5, exclude_diag=True)
+        wd, wi = np.asarray(wd), np.asarray(wi)
+    assert wd.dtype == np.float64
+    gd, gi = pairwise_distances(torch.from_numpy(X), k=5, exclude_diag=True)
+    np.testing.assert_allclose(gd.numpy(), wd, rtol=1e-5)
+    np.testing.assert_array_equal(gi.numpy(), wi)
 
 
 @pytest.mark.parametrize("dim", [0, 1])

@@ -34,11 +34,16 @@ from torchdr_tpu.ops.pallas.reduce_kernel import rowlse_bwd_pallas, rowlse_fwd_p
 from torchdr_tpu.ops.reduce import pairwise_logkernel_logsumexp as jax_logsumexp_red
 from torchdr_tpu.ops.reduce import pairwise_logkernel_rowlse as jax_rowlse
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+    _BLOCKS_PER_SM as BLOCKS_PER_SM,
+    _THREADS as THREADS,
+    column_bytes,
     column_chunks,
+    rows_per_block,
     rowlse_bwd,
     rowlse_bwd_plain,
     rowlse_fwd,
     rowlse_fwd_plain,
+    staged_bytes,
 )
 from torchdr_tpu_torch.ops.reduce import (
     pairwise_logkernel_logsumexp,
@@ -162,14 +167,48 @@ def test_plain_backward_is_the_f64_gradient():
 
 @pytest.mark.parametrize("n", [1, 127, 300, 10_000, 60_000])
 def test_column_chunks_cover_every_column(n):
-    """The kernels' grid: chunks tile [0, n) with no empty chunk, the chunk
-    a whole number of rows' worth of work, about one wave of 132 SMs."""
-    n_chunks, chunk = column_chunks(n, 132)
-    assert n_chunks >= 1 and chunk >= 1
-    assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
-    row_tiles = -(-n // 128)
-    if n >= 10_000:
-        assert row_tiles * n_chunks >= 132 * 8  # the card is filled
+    """The kernels' grid at d = 2 on 132 SMs: chunks tile [0, n) with no
+    empty chunk, and at the sizes of a fit the (row tiles x chunks) grid
+    fills whole waves of resident blocks to nine tenths and never runs a
+    little over one."""
+    for backward in (False, True):
+        n_chunks, chunk = column_chunks(n, 132, 2, backward)
+        assert n_chunks >= 1 and chunk >= 1
+        assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
+        if n >= 10_000:
+            blocks = -(-n // rows_per_block(2)) * n_chunks
+            wave = 132 * BLOCKS_PER_SM
+            assert 0.9 * wave * -(-blocks // wave) <= blocks
+
+
+@pytest.mark.parametrize("sm_count", [1, 108, 132])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 9_973, 10_000, 50_000])
+def test_grid_covers_every_column_once_within_shared_memory(n, sm_count):
+    """The index arithmetic the wrapper keeps in Python, for every width and
+    both kernels: each column lies in exactly one chunk, no chunk is empty,
+    the row tiles cover the rows, and the dynamic shared memory a block asks
+    for stays within the 48 KB the sources accept, far under the 232,448
+    bytes a block of an H100 may use."""
+    for d in range(1, 9):
+        assert rows_per_block(d) == (512 if d <= 4 else 256)
+        assert -(-n // rows_per_block(d)) * rows_per_block(d) >= n
+        for backward in (False, True):
+            n_chunks, chunk = column_chunks(n, sm_count, d, backward)
+            covered = np.zeros(n, dtype=np.int64)
+            for k in range(n_chunks):
+                lo, hi = k * chunk, min(n, (k + 1) * chunk)
+                assert lo < hi
+                covered[lo:hi] += 1
+            assert np.all(covered == 1)
+            assert column_bytes(d, backward) % 4 == 0 and column_bytes(d, backward) >= 4 * d
+            assert staged_bytes(chunk, d, backward) <= 232_448
+            # the blocks per SM that a wave counts on are resident: their
+            # staged chunks, with 1 KB reserved per block, fit an SM's 227 KB
+            # of shared memory, and their threads its 2,048
+            assert BLOCKS_PER_SM * (staged_bytes(chunk, d, backward) + 1024) <= 227 * 1024
+            assert BLOCKS_PER_SM * THREADS <= 2048
+            if n >= 9_973:  # enough columns to fill the card: no tiny chunks
+                assert chunk >= 64
 
 
 def test_wrappers_check_their_inputs():

@@ -83,10 +83,36 @@ def test_pca_init_matches_jax(method):
     np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("method", ["svd", "covariance"])
+def test_pca_init_matches_jax_in_float64(method):
+    """The same init with the JAX PCA evaluated in float64 on the same
+    inputs, at the same 1e-5: a float64 evaluation does not depend on the
+    summation order XLA picks (``tests/_torch_threads.py``)."""
+    X, _ = _blobs(n=1500, d=24, seed=2)
+    with jax.enable_x64(True):
+        want = np.asarray(
+            JaxPCA(n_components=2, method=method)._fit_transform(jnp.asarray(X, jnp.float64))
+        )
+    assert want.dtype == np.float64
+    got = PCA(n_components=2, method=method, device="cpu")._fit_transform(torch.from_numpy(X))
+    scale = want[:, 0].std()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=1e-5, rtol=0)
+
+
 def test_pca_auto_picks_covariance_for_tall_inputs():
     pca = PCA(device="cpu")
     assert pca._resolve_method(torch.zeros((60_000, 784))) == "covariance"
     assert pca._resolve_method(torch.zeros((600, 16))) == "svd"
+
+
+def _to_f64(tree):
+    """A pytree with its floating arrays as float64 (inside
+    ``jax.enable_x64``)."""
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float64)
+        if hasattr(a, "dtype") and jnp.issubdtype(a.dtype, jnp.floating) else a,
+        tree,
+    )
 
 
 def _reference_f64_repulsion(Z, neg, w, a, b, eps):
@@ -129,6 +155,20 @@ def step_states():
 @pytest.mark.parametrize("sched", ["exact", "groups"])
 @pytest.mark.parametrize("start", ["init", "spread"])
 def test_one_step_matches_jax(step_states, sched, start):
+    _hold_one_step_to_jax(step_states, sched, start, x64=False)
+
+
+@pytest.mark.parametrize("sched", ["exact", "groups"])
+@pytest.mark.parametrize("start", ["init", "spread"])
+def test_one_step_matches_jax_in_float64(step_states, sched, start):
+    """The same steps against a float64 evaluation, at the same 1e-5: the
+    JAX package's attraction and optimizer in float64 on the same inputs,
+    the repulsion from the float64 reference on the negatives JAX draws
+    (its TPU kernel has no float64 mode)."""
+    _hold_one_step_to_jax(step_states, sched, start, x64=True)
+
+
+def _hold_one_step_to_jax(step_states, sched, start, x64):
     kw, jm, jconsts, arrays = step_states[sched]
     n = arrays["affinity_in"].shape[0]
     tm = UMAP(device="cpu", **kw)
@@ -145,22 +185,38 @@ def test_one_step_matches_jax(step_states, sched, start):
     schedule = tm._make_schedule()
     for it in (0, 1, 2, 3, 5, 37, 150, 199):
         key = jax.random.PRNGKey(it)
-        Zj = jnp.asarray(Z)
-        g_attr, jcarry = jm._attractive_gradients(Zj, jconsts, jm._init_carry(jconsts), it, key)
         neg = jax.random.randint(key, (S,), 0, n)
-        counts = jnp.sum(jcarry["active_edges"], axis=1) * jm.negative_sample_rate
-        w = counts.astype(jnp.float32) / S
-        if start == "init":
-            g_rep = jax_k1(Zj, neg, w, jm._a, jm._b, jm._eps, interpret=True)
-        else:
-            g_rep = jnp.asarray(
-                _reference_f64_repulsion(Z, np.asarray(neg), np.asarray(w), jm._a, jm._b, jm._eps),
-                jnp.float32,
-            )
-        g_jax = g_attr + g_rep
         lr_jax = 1.0 - it / kw["max_iter"]  # LinearLR 1 -> 0, lr=1
         jopt = jax_make_optimizer("SGD")
-        Z_jax, _ = jopt.update(g_jax, jopt.init(Zj), Zj, lr_jax, {"momentum": 0.0})
+        if x64:
+            with jax.enable_x64(True):
+                jconsts64 = _to_f64(jconsts)
+                Zj = jnp.asarray(Z, jnp.float64)
+                g_attr, jcarry = jm._attractive_gradients(
+                    Zj, jconsts64, jm._init_carry(jconsts64), it, key
+                )
+                counts = jnp.sum(jcarry["active_edges"], axis=1) * jm.negative_sample_rate
+                w = np.asarray(counts, np.float32) / np.float32(S)  # the float32 w both take
+                g_rep = _reference_f64_repulsion(Z, np.asarray(neg), w, jm._a, jm._b, jm._eps)
+                g_jax = g_attr + jnp.asarray(g_rep)
+                Z_jax, _ = jopt.update(g_jax, jopt.init(Zj), Zj, lr_jax, {"momentum": 0.0})
+                g_jax, Z_jax = np.asarray(g_jax), np.asarray(Z_jax)
+            assert g_jax.dtype == Z_jax.dtype == np.float64
+        else:
+            Zj = jnp.asarray(Z)
+            g_attr, jcarry = jm._attractive_gradients(Zj, jconsts, jm._init_carry(jconsts), it, key)
+            counts = jnp.sum(jcarry["active_edges"], axis=1) * jm.negative_sample_rate
+            w = counts.astype(jnp.float32) / S
+            if start == "init":
+                g_rep = jax_k1(Zj, neg, w, jm._a, jm._b, jm._eps, interpret=True)
+            else:
+                g_rep = jnp.asarray(
+                    _reference_f64_repulsion(Z, np.asarray(neg), np.asarray(w), jm._a, jm._b,
+                                             jm._eps),
+                    jnp.float32,
+                )
+            g_jax = g_attr + g_rep
+            Z_jax, _ = jopt.update(g_jax, jopt.init(Zj), Zj, lr_jax, {"momentum": 0.0})
 
         Zt = torch.from_numpy(Z.copy())
         neg_t = torch.from_numpy(np.array(neg)).long()
@@ -193,9 +249,31 @@ def test_wide_embedding_gram_repulsion_matches_jax(step_states):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-def test_per_point_negatives_match_jax():
-    """shared_negatives=False with discard_NNs: the sorted-exclusion draw and
-    the per-point repulsion, on the uniform draw JAX makes from its key."""
+def test_wide_embedding_gram_repulsion_matches_f64_reference(step_states):
+    """The same gram branch (d > 8) held to the float64 reference by direct
+    differences, at the same 1e-5: the JAX branch draws its negatives
+    inside, and another draw in float64 mode, so it cannot be evaluated in
+    float64 on the same negatives."""
+    kw, jm, jconsts, arrays = step_states["exact"]
+    n = arrays["affinity_in"].shape[0]
+    tm = UMAP(device="cpu", **kw)
+    load_reference_state(tm, arrays)
+    tconsts = tm._build_consts(None)
+    Z = np.random.default_rng(5).normal(size=(n, 9)).astype(np.float32)
+    Zt = torch.from_numpy(Z)
+    it = 7
+    S = jm._shared_negative_count(n)
+    neg = np.array(jax.random.randint(jax.random.PRNGKey(it), (S,), 0, n))
+    _, tcarry = tm._attractive_gradients(Zt, tconsts, tm._init_carry(tconsts), it)
+    got, _ = tm._repulsive_gradients(Zt, tconsts, tcarry, it, neg_ids=torch.from_numpy(neg).long())
+    w = (tcarry["active_edges"].sum(1) * tm.negative_sample_rate).float().numpy() / np.float32(S)
+    want = _reference_f64_repulsion(Z, neg, w, tm._a, tm._b, tm._eps)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def _per_point_state():
+    """JAX and port models with shared_negatives=False and discard_NNs, the
+    port loaded with the JAX pre-loop state."""
     X, _ = _blobs(n=300, seed=9)
     Xj = jnp.asarray(X)
     kw = dict(n_neighbors=10, max_iter=100, random_state=0, discard_NNs=True,
@@ -217,8 +295,13 @@ def test_per_point_negatives_match_jax():
     }
     tm = UMAP(device="cpu", **kw)
     load_reference_state(tm, arrays)
-    tconsts = tm._build_consts(None)
+    return jm, jconsts, tm, tm._build_consts(None)
 
+
+def test_per_point_negatives_match_jax():
+    """shared_negatives=False with discard_NNs: the sorted-exclusion draw and
+    the per-point repulsion, on the uniform draw JAX makes from its key."""
+    jm, jconsts, tm, tconsts = _per_point_state()
     key = jax.random.PRNGKey(3)
     u = np.array(jax.random.uniform(key, (300, jm.n_negatives)))
     want_ids = np.asarray(jm._sample_negatives(key, jconsts))
@@ -240,6 +323,32 @@ def test_per_point_negatives_match_jax():
         _, tcarry = tm._attractive_gradients(Zt, tconsts, tm._init_carry(tconsts), it)
         got, _ = tm._repulsive_gradients(Zt, tconsts, tcarry, it)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_per_point_repulsion_matches_f64_reference():
+    """The per-point repulsion (shared_negatives=False) held to a float64
+    numpy reference on the ids the port draws from a given uniform draw
+    (``test_per_point_negatives_match_jax`` holds those ids to JAX's), at
+    the same 1e-5 as the float32 JAX comparison there."""
+    _, _, tm, tconsts = _per_point_state()
+    rng = np.random.default_rng(8)
+    Z = (3.0 * rng.normal(size=(300, 2))).astype(np.float32)
+    Zt = torch.from_numpy(Z)
+    draw = tm._sample_negatives
+    for it in (0, 4):
+        u = rng.random((300, tm.n_negatives)).astype(np.float32)
+        tm._sample_negatives = lambda consts, u_in=u: draw(consts, u=torch.from_numpy(u_in))
+        ids = tm._sample_negatives(tconsts).numpy()
+        _, tcarry = tm._attractive_gradients(Zt, tconsts, tm._init_carry(tconsts), it)
+        got, _ = tm._repulsive_gradients(Zt, tconsts, tcarry, it)
+        counts = (tcarry["active_edges"].sum(1) * tm.negative_sample_rate).numpy()
+        Z64 = Z.astype(np.float64)
+        diff = Z64[:, None, :] - Z64[ids]
+        D = (diff**2).sum(-1)
+        coef = -2.0 * tm._b / ((D + tm._eps) * (1.0 + tm._a * D**tm._b))
+        coef = np.where(np.arange(tm.n_negatives)[None, :] >= counts[:, None], 0.0, coef)
+        want = np.clip((diff * coef[:, :, None]).sum(1), -4.0, 4.0)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize(

@@ -9,42 +9,83 @@
 // with the student kernel k = 1 / (1 + d^2) or the gaussian kernel
 // k = exp(-d^2). The diagonal term is dropped when exclude_diag is set.
 //
-// Student: q lies in (0, 1] and never underflows at the distances of an
-// embedding, so the row sum of q is taken directly, with one log per row, as
-// the TPU kernel does. Gaussian: exp(-d^2) underflows for a row whose
-// nearest point is ~10 away, and the TPU kernel's direct sum then clamps at
-// log(1e-30) = -69. Here each partial keeps a running (max, sum) pair, as a
-// logsumexp does, so the result is exact for any spread, as the JAX
-// package's XLA tier is (ops/reduce.py).
-//
-// Grid: (row tiles of kThreads rows) x (column chunks). One thread owns one
-// row; the block stages the chunk's columns in shared memory, kTile at a
-// time, and walks them. At n = 10,000 one row per thread alone gives 79
-// blocks for 132 SMs; splitting the columns into chunks gives about one
-// full wave of resident blocks, and a second small kernel merges each row's
-// chunk partials. The partials are the only scratch (n_chunks x n doubles,
-// allocated by the wrapper); no n x n array exists anywhere.
-//
-// Accumulation: each thread sums one staged tile (at most kTile = 256
-// terms) in float32, then adds that tile sum to a double; the chunks are
-// merged in double. The float32 run is short, so the relative error of a
-// row sum is at most 256 * 2^-24 ~ 1.5e-5 and typically sqrt(256) * 2^-24
-// ~ 1e-6, where one float32 sum over all 10k terms would reach 6e-4 and
-// 6e-6; one conversion per tile keeps double arithmetic out of the inner
-// loop.
-//
-// Bound: the kernel reads Z (n d floats) and writes n floats: 0.12 MB at
+// Bound. The kernel reads Z (n d floats) and writes n floats: 0.12 MB at
 // n = 10,000, d = 2, a few hundredths of a microsecond of memory time. The
 // kernel value is symmetric in (i, j), so the least work evaluates each of
-// the n(n - 1)/2 unordered pairs once, in 3d + 3 float32 operations (d
-// differences, d squares, d - 1 adds, then 1 + d^2 and the divide, or the
-// negation and the exp, each counted as one; and the adds into rows i and
-// j), plus one log per row: 4.5e8 operations, 6.7 us at 67 TFLOP/s. So it
-// is bound by operations, and by the divide's and the exp's instruction
-// sequences in practice. This kernel evaluates each ordered pair, as the
-// TPU kernel does: twice the pair evaluations of that bound. Built with
-// -fmad=false, so that the
-// products round as the plain PyTorch version rounds them.
+// the n(n - 1)/2 unordered pairs once, in 3d + 3 float32 operations, plus one
+// log per row: 4.5e8 operations, 6.7 us at 67 TFLOP/s. So it is bound by
+// operations. This kernel evaluates each ordered pair, and a kernel value
+// needs the special-function unit (a reciprocal or an exp2), which gives 16
+// results per clock per SM: one call per ordered pair is 24 us for 1.0e8
+// pairs at 132 SMs and 1.98 GHz, and that, not the 6.7 us, is the floor of
+// such a design. The student mode here makes one call per two pairs (12 us)
+// and is bound by instruction issue instead: 6.4 instructions per pair at
+// d = 2, four warp instructions per clock per SM.
+//
+// What the design does about it: it spends as few issue slots and
+// special-function calls per pair as it can.
+//
+// - A register tile per thread. A thread owns kRows rows (4 for d <= 4,
+//   else 2), kThreads apart, and walks the staged columns kUnroll = 8 at a
+//   time: one shared-memory load (a column is one aligned record, an LDS.64
+//   at d = 2, which the compiler pairs into LDS.128) serves kRows pairs,
+//   and kRows * kUnroll independent chains hide the special-function
+//   unit's latency.
+// - Student: a = 1 + d^2 by d fused multiply-adds, and one rcp.approx.ftz
+//   (1 ulp) for two columns, 1/a0 + 1/a1 = (a0 + a1) rcp(a0 a1), in place
+//   of two IEEE divides (each a reciprocal, Newton steps and a slow path).
+//   The product a0 a1 overflows to a zero term only beyond d^2 ~ 1e19, and
+//   each term keeps ~3e-7 relative error. An infinite d^2 would give NaN
+//   where the plain version gives a zero term; a finite Z cannot reach it.
+// - Gaussian: a reference distance per (row, chunk), kept in the log2
+//   domain as the shift c = d_ref^2 * log2(e); each term is one
+//   ex2.approx.ftz of fma(d^2, -log2 e, c). The reference is the least d^2
+//   seen when it was last moved, and it moves (the sums rescaled by
+//   2^(c_new - c_old)) only when the least d^2 of kUnroll columns (one FMNMX
+//   per pair) falls more than kSlack = 44 below it: a term is then at most
+//   2^63.5 and a tile's float32 sum at most 2^71.5, while the reference's
+//   own term is 1, so nothing overflows and the sum never underflows as a
+//   whole. A test against the running minimum itself would be taken by some
+//   lane of a warp at most groups of a 371-column chunk; this one is taken
+//   once. So a row whose every exp(-d^2) underflows keeps its exact
+//   log-sum, as the JAX package's XLA tier does (ops/reduce.py) and its TPU
+//   kernel does not (it clamps at log(1e-30) = -69). The shift enters the
+//   result as (log2 S - c) ln 2, so its own rounding cancels; what is left
+//   is log2(e) in float32, 1.3e-8 relative to d^2.
+// - The file is compiled with -fmad=false as the other sources are, so
+//   every fused multiply-add here is written by hand (fmaf).
+// - The diagonal test is out of the inner loop: the loop over a staged tile
+//   is instantiated twice, and a block takes the masked one only for the
+//   tiles whose columns meet its rows.
+// - The block stages its whole column chunk once, in dynamic shared memory,
+//   with one __syncthreads() before the loop.
+// - Grid: (row tiles of kRows * kThreads rows) x (column chunks), sized by
+//   the wrapper to whole waves of kBlocksPerSM = 6 resident blocks per SM
+//   and never a little over one (the blocks are equal, so a few over a wave
+//   would cost a whole one). That many blocks are resident by construction:
+//   the launch bounds hold the registers to 80 a thread (no spill at d = 2
+//   and d = 3), and a chunk stages at most kMaxStaged bytes. Sized for 8
+//   (64 registers, which spill at d = 3) the kernels ran 2 to 8 % slower,
+//   sized for 4 up to 20 % slower. A second small kernel merges each
+//   row's chunk partials (n_chunks x n doubles of scratch; no n x n array
+//   exists anywhere). Each unordered pair once (tile pairs I <= J, row sums
+//   in registers, column sums in per-warp shared memory) was tried and
+//   dropped: 17 % faster at n = 50,000 but twice as slow at n = 10,000,
+//   where 512-row tiles leave 210 blocks for 132 SMs.
+//
+// Tensor cores and TMA are not the tools here. The contraction depth of the
+// gram is d <= 8, wgmma/mma on float32 inputs means TF32 (10-bit mantissa),
+// which this package forbids for distances, and the cost of a pair is the
+// kernel value, not the gram. The whole input is 80 KB: there is no copy
+// worth a TMA descriptor.
+//
+// Accumulation: each thread sums one staged tile (at most kTile = 256
+// terms per row) in float32, then adds that tile sum to a double; the chunks
+// are merged in double. The float32 run is short, so the relative error of
+// a row sum is at most 256 * 2^-24 ~ 1.5e-5 and typically sqrt(256) * 2^-24
+// ~ 1e-6, where one float32 sum over all 10k terms would reach 6e-4 and
+// 6e-6; one conversion per tile keeps double arithmetic out of the inner
+// loop. Gaussian: squared distances beyond 1e37 count as no term.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,145 +93,288 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 256;
+// Blocks the grid counts on per SM (the wrapper sizes its waves by it): the
+// launch bounds keep the registers, and kMaxStaged the shared memory (227 KB
+// per SM, 1 KB of it reserved per block), within what that many blocks need.
+constexpr int kBlocksPerSM = 6;
+constexpr size_t kMaxStaged = 227 * 1024 / kBlocksPerSM - 1024;
+constexpr int kUnroll = 8;  // staged columns per step of the inner loop
+constexpr int kTile = 256;  // longest float32 run of one accumulator
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNoTerm = 1.0e38f;   // gaussian: the reference d^2 before any term
+constexpr float kSlack = 44.0f;      // gaussian: how far d^2 may fall below the reference
+constexpr float kNoTermShift = 1.0e37f;  // a merged shift above this: a row with no term
 
-template <int D, bool kGaussian>
-__global__ void __launch_bounds__(kThreads)
-rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
-                      float* __restrict__ part_m, int n, int chunk,
-                      int exclude_diag) {
-  __shared__ float zs[D][kTile];
+template <int D>
+struct Shape {
+  static constexpr int kRows = D <= 4 ? 4 : 2;  // rows of the thread's register tile
+  // floats of one staged column: d, padded to an aligned vector
+  static constexpr int kRec = D == 1 ? 1 : D == 2 ? 2 : D <= 4 ? 4 : 8;
+};
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n;  // the ragged last row tile: no padding of n
-  const int c0 = blockIdx.y * chunk;
-  const int c1 = min(n, c0 + chunk);
-  float zi[D];
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One staged column into registers, by the widest aligned loads.
+template <int P>
+__device__ __forceinline__ void load_record(const float* rec, float (&v)[P]) {
+  if constexpr (P % 4 == 0) {
 #pragma unroll
-  for (int c = 0; c < D; ++c) zi[c] = live ? Z[static_cast<size_t>(i) * D + c] : 0.0f;
-
-  double S = 0.0;    // sum of k (student) or of exp(-d^2 - M) (gaussian)
-  float M = -INFINITY;  // gaussian: running max of -d^2
-
-  for (int t0 = c0; t0 < c1; t0 += kTile) {
-    const int len = min(kTile, c1 - t0);
-    for (int t = threadIdx.x; t < len; t += kThreads) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) zs[c][t] = Z[static_cast<size_t>(t0 + t) * D + c];
+    for (int k = 0; k < P / 4; ++k) {
+      const float4 t = reinterpret_cast<const float4*>(rec)[k];
+      v[4 * k] = t.x;
+      v[4 * k + 1] = t.y;
+      v[4 * k + 2] = t.z;
+      v[4 * k + 3] = t.w;
     }
-    __syncthreads();
-    if (live) {
-      float s = 0.0f;
-      for (int t = 0; t < len; ++t) {
-        float dist = 0.0f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) {
-          const float diff = zi[c] - zs[c][t];
-          dist = dist + diff * diff;
-        }
-        const bool skip = exclude_diag && (t0 + t == i);
-        if (!kGaussian) {
-          const float q = 1.0f / (1.0f + dist);
-          s += skip ? 0.0f : q;
-        } else if (!skip) {
-          const float v = -dist;
-          if (v > M) {  // new max: rescale what was summed so far
-            const float scale = expf(M - v);
-            s = s * scale + 1.0f;
-            S *= static_cast<double>(scale);
-            M = v;
-          } else {
-            s += expf(v - M);
-          }
-        }
-      }
-      S += static_cast<double>(s);
-    }
-    __syncthreads();
-  }
-  if (live) {
-    const size_t at = static_cast<size_t>(blockIdx.y) * n + i;
-    part_s[at] = S;
-    if (kGaussian) part_m[at] = M;
+  } else if constexpr (P == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(rec);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = rec[0];
   }
 }
 
-// out_i = log(sum_c S_ci) (student), or M_i + log(sum_c S_ci exp(M_ci - M_i))
-// with M_i = max_c M_ci (gaussian); -inf for a row with no term.
+// The running state of one thread: per owned row, the float32 sum of the
+// current tile, the double sum of the chunk so far and, for the gaussian
+// kernel, the shift c = d_ref^2 * log2(e) and the d^2 below which the
+// reference moves.
+template <int R>
+struct RowState {
+  float s[R];
+  double S[R];
+  float shift[R];
+  float move_below[R];
+};
+
+// G staged columns, starting at cols (global column j), against the
+// thread's R rows.
+template <int D, int G, bool kGaussian, bool kDiag>
+__device__ __forceinline__ void pair_group(const float* cols, int j,
+                                           const float (&zi)[Shape<D>::kRows][D],
+                                           const int (&row)[Shape<D>::kRows],
+                                           RowState<Shape<D>::kRows>& st) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  float zj[G][P];
+#pragma unroll
+  for (int u = 0; u < G; ++u) load_record<P>(cols + u * P, zj[u]);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!kGaussian && !kDiag && G % 2 == 0) {
+#pragma unroll
+      for (int u = 0; u < G; u += 2) {
+        float a0 = 1.0f, a1 = 1.0f;  // 1 + d^2 of two columns
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          const float d0 = zi[r][c] - zj[u][c];
+          const float d1 = zi[r][c] - zj[u + 1][c];
+          a0 = fmaf(d0, d0, a0);
+          a1 = fmaf(d1, d1, a1);
+        }
+        // 1/a0 + 1/a1 = (a0 + a1) / (a0 a1): one reciprocal for two pairs
+        st.s[r] = fmaf(a0 + a1, rcp_approx(a0 * a1), st.s[r]);
+      }
+    } else if (!kGaussian) {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        float a = 1.0f;  // 1 + d^2
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          const float diff = zi[r][c] - zj[u][c];
+          a = fmaf(diff, diff, a);
+        }
+        float q = rcp_approx(a);
+        if (kDiag) q = (j + u == row[r]) ? 0.0f : q;
+        st.s[r] += q;
+      }
+    } else {
+      float dist[G];
+      float m = INFINITY;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const float d0 = zi[r][0] - zj[u][0];
+        float a = d0 * d0;
+#pragma unroll
+        for (int c = 1; c < D; ++c) {
+          const float diff = zi[r][c] - zj[u][c];
+          a = fmaf(diff, diff, a);
+        }
+        if (kDiag) a = (j + u == row[r]) ? INFINITY : a;
+        dist[u] = a;
+        m = fminf(m, a);
+      }
+      if (m < st.move_below[r]) {  // move the reference: rescale what was summed so far
+        const float shift = m * kLog2e;
+        const float scale = ex2_approx(shift - st.shift[r]);
+        st.s[r] *= scale;
+        st.S[r] *= static_cast<double>(scale);
+        st.shift[r] = shift;
+        st.move_below[r] = m - kSlack;
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) st.s[r] += ex2_approx(fmaf(dist[u], -kLog2e, st.shift[r]));
+    }
+  }
+}
+
+// One staged tile of len <= kTile columns: a float32 run per row, added to
+// the double sums at its end.
+template <int D, bool kGaussian, bool kDiag>
+__device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
+                                          const float (&zi)[Shape<D>::kRows][D],
+                                          const int (&row)[Shape<D>::kRows],
+                                          RowState<Shape<D>::kRows>& st) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  int t = 0;
+  for (; t + kUnroll <= len; t += kUnroll)
+    pair_group<D, kUnroll, kGaussian, kDiag>(cols + t * P, j0 + t, zi, row, st);
+  for (; t < len; ++t) pair_group<D, 1, kGaussian, kDiag>(cols + t * P, j0 + t, zi, row, st);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    st.S[r] += static_cast<double>(st.s[r]);
+    st.s[r] = 0.0f;
+  }
+}
+
+template <int D, bool kGaussian>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
+                      double* __restrict__ part_c, int n, int chunk, int exclude_diag) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  extern __shared__ float4 staged[];
+  float* cols = reinterpret_cast<float*>(staged);
+
+  const int r0 = blockIdx.x * (R * kThreads);
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(n, c0 + chunk);
+  for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) cols[t * P + c] = Z[static_cast<size_t>(c0 + t) * D + c];
+  }
+
+  int row[R];  // the ragged last row tile: rows >= n are computed and not written
+  float zi[R][D];
+  RowState<R> st;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = r0 + r * kThreads + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < D; ++c) zi[r][c] = row[r] < n ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+    st.s[r] = 0.0f;
+    st.S[r] = 0.0;
+    st.shift[r] = kNoTerm * kLog2e;
+    st.move_below[r] = kNoTerm;
+  }
+  __syncthreads();
+
+  for (int j0 = c0; j0 < c1; j0 += kTile) {
+    const int len = min(kTile, c1 - j0);
+    const float* tile = cols + (j0 - c0) * P;
+    // only a tile whose columns meet the block's rows can hold a diagonal term
+    if (exclude_diag && j0 < r0 + R * kThreads && r0 < j0 + len)
+      pair_tile<D, kGaussian, true>(tile, j0, len, zi, row, st);
+    else
+      pair_tile<D, kGaussian, false>(tile, j0, len, zi, row, st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (row[r] < n) {
+      const size_t at = static_cast<size_t>(blockIdx.y) * n + row[r];
+      part_s[at] = st.S[r];
+      if (kGaussian) part_c[at] = static_cast<double>(st.shift[r]);
+    }
+  }
+}
+
+// out_i = log(sum_k S_ki) (student), or, with each chunk's sum S_ki of
+// 2^(c_ki - d^2 log2 e) and c_i = min_k c_ki, (log2(sum_k S_ki 2^(c_i - c_ki))
+// - c_i) ln 2 (gaussian); -inf for a row with no term.
 template <bool kGaussian>
 __global__ void rowlse_merge_kernel(const double* __restrict__ part_s,
-                                    const float* __restrict__ part_m,
-                                    float* __restrict__ out, int n,
-                                    int n_chunks) {
+                                    const double* __restrict__ part_c,
+                                    float* __restrict__ out, int n, int n_chunks) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   double S = 0.0;
   if (!kGaussian) {
-    for (int c = 0; c < n_chunks; ++c) S += part_s[static_cast<size_t>(c) * n + i];
+    for (int k = 0; k < n_chunks; ++k) S += part_s[static_cast<size_t>(k) * n + i];
     out[i] = static_cast<float>(log(S));
     return;
   }
-  float M = -INFINITY;
-  for (int c = 0; c < n_chunks; ++c) M = fmaxf(M, part_m[static_cast<size_t>(c) * n + i]);
-  if (M == -INFINITY) {
+  double shift = INFINITY;
+  for (int k = 0; k < n_chunks; ++k) shift = fmin(shift, part_c[static_cast<size_t>(k) * n + i]);
+  if (shift > static_cast<double>(kNoTermShift)) {
     out[i] = -INFINITY;
     return;
   }
-  for (int c = 0; c < n_chunks; ++c) {
-    const size_t at = static_cast<size_t>(c) * n + i;
-    S += part_s[at] * exp(static_cast<double>(part_m[at]) - static_cast<double>(M));
+  for (int k = 0; k < n_chunks; ++k) {
+    const size_t at = static_cast<size_t>(k) * n + i;
+    S += part_s[at] * exp2(shift - part_c[at]);
   }
-  out[i] = static_cast<float>(static_cast<double>(M) + log(S));
+  out[i] = static_cast<float>(log(S) - shift * 0.6931471805599453);
 }
 
 template <int D>
-void launch(const float* Z, float* out, double* part_s, float* part_m, int n,
-            int n_chunks, int chunk, bool gaussian, int exclude_diag,
-            cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, n_chunks);
+int launch(const float* Z, float* out, double* part, int n, int n_chunks, int chunk,
+           bool gaussian, int exclude_diag, cudaStream_t stream) {
+  const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
+  if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = Shape<D>::kRows * kThreads;
+  const dim3 grid((n + rows - 1) / rows, n_chunks);
   const int merge_blocks = (n + 255) / 256;
+  double* part_c = part + static_cast<size_t>(n_chunks) * n;
   if (gaussian) {
-    rowlse_partial_kernel<D, true><<<grid, kThreads, 0, stream>>>(
-        Z, part_s, part_m, n, chunk, exclude_diag);
-    rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part_s, part_m, out, n,
-                                                               n_chunks);
+    rowlse_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, part, part_c, n, chunk, exclude_diag);
+    rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, n, n_chunks);
   } else {
-    rowlse_partial_kernel<D, false><<<grid, kThreads, 0, stream>>>(
-        Z, part_s, part_m, n, chunk, exclude_diag);
-    rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part_s, part_m, out, n,
-                                                                n_chunks);
+    rowlse_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, part, part_c, n, chunk, exclude_diag);
+    rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, n, n_chunks);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes. Z (n, d) and out (n,) are contiguous
-// float32 on the device; part_s (n_chunks, n) float64 and part_m
-// (n_chunks, n) float32 are scratch. Column chunk c covers columns
-// [c * chunk, min(n, (c + 1) * chunk)). Returns cudaGetLastError() after the
-// launches (0 on success).
-extern "C" int rowlse_fwd(const void* Z, void* out, void* part_s, void* part_m,
-                          int n, int d, int n_chunks, int chunk, int gaussian,
-                          int exclude_diag, void* stream) {
+// float32 on the device; part is scratch of n_chunks * n doubles (student)
+// or twice that (gaussian: the sums, then the shifts). Column chunk k covers
+// columns [k * chunk, min(n, (k + 1) * chunk)), and a chunk's staged columns
+// must fit kMaxStaged bytes. Returns the first CUDA error (0 on success).
+extern "C" int rowlse_fwd(const void* Z, void* out, void* part, int n, int d, int n_chunks,
+                          int chunk, int gaussian, int exclude_diag, void* stream) {
   if (n <= 0) return 0;
   if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* z = static_cast<const float*>(Z);
   auto* o = static_cast<float*>(out);
-  auto* ps = static_cast<double*>(part_s);
-  auto* pm = static_cast<float*>(part_m);
+  auto* p = static_cast<double*>(part);
   const bool g = gaussian != 0;
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: launch<1>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 2: launch<2>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 3: launch<3>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 4: launch<4>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 5: launch<5>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 6: launch<6>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 7: launch<7>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
-    case 8: launch<8>(z, o, ps, pm, n, n_chunks, chunk, g, exclude_diag, st); break;
+    case 1: return launch<1>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 2: return launch<2>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 3: return launch<3>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 4: return launch<4>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 5: return launch<5>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 6: return launch<6>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 7: return launch<7>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
+    case 8: return launch<8>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

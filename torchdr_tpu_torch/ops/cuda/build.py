@@ -40,11 +40,11 @@ SIGNATURES = {
         "umap_shared_repulsion",
         [_V, _V, _V, _V, _V, _I, _I, _I, _F, _F, _F, _V],
     ),
-    "rowlse_fwd": ("rowlse_fwd", [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
+    "rowlse_fwd": ("rowlse_fwd", [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
     "rowlse_bwd": ("rowlse_bwd", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V]),
 }
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, object] = {}  # name -> the bound entry point
 
 
 def _nvcc() -> str:
@@ -91,13 +91,12 @@ def build_libraries(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
 
 def load_function(name: str):
     """The entry point of library ``name``, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
+    fn = _LOADED.get(name)
+    if fn is None:
         (path,) = build_libraries([name])
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(path)), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
     return fn

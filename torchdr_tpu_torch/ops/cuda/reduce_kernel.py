@@ -6,9 +6,12 @@ Replace the TPU kernels ``torchdr_tpu/ops/pallas/reduce_kernel.py``
 their square wrappers ``rowlse_fwd_pallas`` and ``rowlse_bwd_pallas``). The
 CUDA sources are ``ops/csrc/rowlse_fwd.cu`` and ``ops/csrc/rowlse_bwd.cu``;
 their notes give the bound on the card (the n² pairs' arithmetic, never
-memory) and what the design does about it (column chunks across blocks so
-that the grid fills the card, staged tiles in shared memory, float32 tile
-sums into float64 accumulators, no n×n array).
+memory; at most one special-function call per ordered pair) and what the design
+does about it (a register tile of several rows per thread, approximate
+reciprocal and exp2, fused multiply-adds, the diagonal test out of the inner
+loop, column chunks across blocks so that the grid is whole waves of
+resident blocks, each chunk staged once in shared memory, float32 tile sums
+into float64 accumulators, no n×n array).
 
 For Z (n, d) and the student kernel k = 1/(1+d²) or the gaussian
 k = e^(−d²):
@@ -39,9 +42,14 @@ from .build import load_function
 MAX_D = 8
 KERNELS = ("student", "gaussian")
 
-_ROWS_PER_BLOCK = 128  # kThreads of both sources: one row per thread
-_TILE = 256  # kTile: columns staged per shared-memory tile
-_RESIDENT_BLOCKS_PER_SM = 16  # 2,048 resident threads per SM / 128
+# The sources' constants, which the grid below must agree with.
+_THREADS = 128  # kThreads
+_ROWS_PER_THREAD = 4  # Shape<D>::kRows at d <= 4; half of it above
+_BLOCKS_PER_SM = 6  # kBlocksPerSM: resident blocks per SM, which the launch bounds allow for
+# kMaxStaged, the most a block stages: an SM's 227 KB of shared memory, 1 KB
+# of it reserved per block, holds that many blocks
+_STAGED_BYTES = 227 * 1024 // _BLOCKS_PER_SM - 1024
+_MIN_CHUNK = 64  # fewest columns worth a block of its own
 
 
 def _check_z(Z, kernel):
@@ -72,15 +80,50 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def column_chunks(n: int, sm_count: int):
-    """(n_chunks, chunk): split the n columns so that the (row tiles x
-    column chunks) grid is about one full wave of resident blocks, with at
-    least one staged tile per chunk."""
-    row_tiles = -(-n // _ROWS_PER_BLOCK)
-    target = sm_count * _RESIDENT_BLOCKS_PER_SM
-    n_chunks = max(1, min(-(-target // row_tiles), -(-n // _TILE)))
+def rows_per_block(d: int) -> int:
+    """Rows of Z one block owns: each thread a register tile of 4 rows, or
+    2 above d = 4."""
+    return _THREADS * (_ROWS_PER_THREAD if d <= 4 else (_ROWS_PER_THREAD + 1) // 2)
+
+
+def column_bytes(d: int, backward: bool) -> int:
+    """Bytes of one staged column: z_j padded to an aligned vector (K2), or
+    z_j with u_j, or g_j and lse_j, padded to whole float4s (K3)."""
+    if backward:
+        return 4 * ((d + 2 + 3) // 4 * 4)
+    return 4 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8)
+
+
+def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False):
+    """(n_chunks, chunk): column chunk k covers [k·chunk, min(n, (k+1)·chunk)).
+
+    The (row tiles × column chunks) grid fills whole waves of resident
+    blocks and never a little more than one (blocks are equal, so a few
+    blocks over a wave would cost a whole one): one wave where a chunk then
+    fits the staging budget, else the fewest waves that do. A chunk holds
+    at least ``_MIN_CHUNK`` columns, unless n is smaller.
+    """
+    row_tiles = -(-n // rows_per_block(d))
+    wave = sm_count * _BLOCKS_PER_SM
+    fewest = -(-n // (_STAGED_BYTES // column_bytes(d, backward)))
+    waves = max(1, -(-row_tiles * fewest // wave))
+    n_chunks = max(fewest, min(waves * wave // row_tiles, -(-n // _MIN_CHUNK)))
     chunk = -(-n // n_chunks)
     return -(-n // chunk), chunk
+
+
+def staged_bytes(chunk: int, d: int, backward: bool) -> int:
+    """Dynamic shared memory a block of the kernel asks for."""
+    return chunk * column_bytes(d, backward)
+
+
+def _launch(fn, Z, *args):
+    """Call the library's entry point on Z's device and its current stream."""
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    if torch.cuda.current_device() == Z.device.index:
+        return fn(*args, stream)
+    with torch.cuda.device(Z.device):
+        return fn(*args, stream)
 
 
 def _sq_block(Zb, Z):
@@ -154,16 +197,15 @@ def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     _check_cuda(Z, "rowlse_fwd")
     fn = load_function("rowlse_fwd")
     n, d = Z.shape
-    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index))
+    gaussian = kernel == "gaussian"
+    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index), d, backward=False)
     out = torch.empty((n,), dtype=torch.float32, device=Z.device)
-    part_s = torch.empty((n_chunks, n), dtype=torch.float64, device=Z.device)
-    part_m = torch.empty((n_chunks, n), dtype=torch.float32, device=Z.device)
-    stream = torch.cuda.current_stream(Z.device).cuda_stream
-    with torch.cuda.device(Z.device):
-        rc = fn(
-            Z.data_ptr(), out.data_ptr(), part_s.data_ptr(), part_m.data_ptr(),
-            n, d, n_chunks, chunk, int(kernel == "gaussian"), int(bool(exclude_diag)), stream,
-        )
+    # the chunks' sums and, for the gaussian kernel, their shifts
+    part = torch.empty((2 if gaussian else 1, n_chunks, n), dtype=torch.float64, device=Z.device)
+    rc = _launch(
+        fn, Z, Z.data_ptr(), out.data_ptr(), part.data_ptr(),
+        n, d, n_chunks, chunk, int(gaussian), int(bool(exclude_diag)),
+    )
     if rc != 0:
         raise RuntimeError(f"rowlse_fwd launch failed: cudaError {rc}.")
     rowlse_fwd.launches += 1
@@ -185,15 +227,13 @@ def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
     _check_cuda(Z, "rowlse_bwd")
     fn = load_function("rowlse_bwd")
     n, d = Z.shape
-    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index))
+    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index), d, backward=True)
     out = torch.empty_like(Z)
     part = torch.empty((n_chunks, n, d), dtype=torch.float64, device=Z.device)
-    stream = torch.cuda.current_stream(Z.device).cuda_stream
-    with torch.cuda.device(Z.device):
-        rc = fn(
-            Z.data_ptr(), row_lse.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
-            n, d, n_chunks, chunk, int(kernel == "gaussian"), stream,
-        )
+    rc = _launch(
+        fn, Z, Z.data_ptr(), row_lse.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
+        n, d, n_chunks, chunk, int(kernel == "gaussian"),
+    )
     if rc != 0:
         raise RuntimeError(f"rowlse_bwd launch failed: cudaError {rc}.")
     rowlse_bwd.launches += 1
