@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 2. build: every CUDA kernel of the main path, from the sources in the
    checkout (one nvcc per source, started together);
 3. kernels: each kernel (K1, K2, K3) against its plain PyTorch version on
-   the card, at the main paths' shapes plus edge cases, with its time, the
-   plain version's time and its bound;
+   the card (K1 also against a float64 evaluation), at the main paths'
+   shapes plus edge cases, with its time, the plain version's time and its
+   bound;
 4. fits, each with every kernel launch counter set to 0 just before and
    read just after: ``UMAP(random_state=0).fit_transform(X)`` on 60,000 x
    784 float32 synthetic data (50 Gaussian clusters, seeded), then
@@ -22,6 +23,10 @@ Phases, in order; any failure exits non-zero:
 6. with ``--profile`` only: device time by kernel and the device's idle
    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
    (torch.profiler).
+
+With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
+(with ``--sass``, K1's report): the quick way to compare two versions of that
+kernel in one call. It then prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -42,8 +47,30 @@ import numpy as np
 N, D_IN, N_CLUSTERS, SEED = 60_000, 784, 50, 0
 N_TSNE = 10_000  # the exact t-SNE/SNE paths' size
 N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
+# K1 is timed at (n, S, d): the UMAP path's shape, the same in 3-D, a size
+# where the device and not the host bounds a step, and the sample of 2048 that
+# the estimator draws at small n
+K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2048, 2))
+K1_SFU_CALLS = 2.5  # per pair, as K1 is built: lg2, ex2, and one reciprocal for two pairs
 S_MAIN = 512  # shared negatives of the UMAP path at n = 60k
-TOL = 1e-5  # K1, max |kernel - plain|: same arithmetic, float64 sums in both
+# K1 is held to a float64 evaluation of its function (the plain version on
+# double tensors) and to the plain version:
+#   max |kernel - float64| <= K1_HARD, the JAX package's own tolerance for its
+#     kernel against a float64 reference;
+#   max |kernel - float64| <= 3 max(max |plain - float64|, 2e-6): the kernel is
+#     not much further from the truth than the plain version is;
+#   max |kernel - plain| <= TOL_K1. The largest error sits in one term: a
+#     negative at D ~ eps from its row gives |coef (z_i - z_s)| up to
+#     b / sqrt(eps) = 28, times a weight of up to 1.2. Each version rounds
+#     that term four or five times in float32 (2^-24 each: the plain version
+#     alone is 4e-6 to 9e-6 from float64 on these inputs), and not at the same
+#     places (fused multiply-adds, an approximate reciprocal of a product of
+#     two), so they differ by up to ~1e-5 there. The kernel's float32 runs
+#     (16 terms after such a term, each rounded at ulp(28) = 1.9e-6) add a few
+#     1e-6. Measured 6e-6 to 9.1e-6; with summation made exact it was still
+#     5.7e-6 to 7.2e-6, so 1e-5 would hold by chance only.
+K1_HARD = 1e-4
+TOL_K1 = 2e-5
 # K2: |kernel - plain| <= TOL_K2 * max(1, |plain|). Float32 tile sums of at
 # most 256 terms (kernel) against one float32 logsumexp over the row
 # (plain): both ~1e-6 relative in the row sum, so ~1e-6 in the log.
@@ -113,7 +140,8 @@ def sass_report(libraries) -> None:
         m = re.search(r"\d\d((?:rowlse|repulsion)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
         if m is None:
             return mangled
-        mode = {"0": ", student", "1": ", gaussian", None: ""}[m.group(3)]
+        modes = ("", ", masked") if "repulsion" in m.group(1) else (", student", ", gaussian")
+        mode = "" if m.group(3) is None else modes[int(m.group(3))]
         return f"{m.group(1)}<d={m.group(2)}{mode}>"
 
     for lib in libraries:
@@ -156,62 +184,145 @@ def k1_bound_ms(n: int, S: int, d: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_k1(torch, gen, a: float, b: float) -> dict:
+def k1_sfu_floor_ms(n: int, S: int, calls_per_pair: float) -> float:
+    """Least time of K1 as it is built: each of the n·S pairs with the
+    special-function results (lg2, ex2, reciprocal) the design takes per pair,
+    at 16 per clock per SM. It lies above ``k1_bound_ms``, which counts each
+    of them as one float32 operation."""
+    return n * S * calls_per_pair / H100_SFU_PER_S * 1e3
+
+
+def k1_inputs(torch, gen, n: int, S: int, d: int, neg=None):
+    dev = torch.device("cuda")
+    Z = (3.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+    if neg is None:
+        neg = torch.randint(0, n, (S,), generator=gen, device=dev)
+    w = torch.randint(0, 600, (n,), generator=gen, device=dev).float() / S
+    return Z, neg, w
+
+
+def hold_k1(torch, label, Z, neg, w, a, b, eps=1e-3) -> tuple:
+    """One K1 case against the float64 evaluation and the plain version, at
+    the three limits stated beside ``TOL_K1``. Returns max |kernel - plain|
+    and the time of the one plain call."""
     from torchdr_tpu_torch.ops.cuda.umap_kernel import (
         fused_shared_repulsion,
         shared_repulsion_plain,
     )
 
-    dev = torch.device("cuda")
-    worst = 0.0
-    cases = [
-        ("main d=2", N, S_MAIN, 2, False),
-        ("main d=3", N, S_MAIN, 3, False),
-        ("ragged n", N - 37, S_MAIN, 2, False),
-        ("self-collisions", N, S_MAIN, 2, True),
-    ]
-    for label, n, S, d, collide in cases:
-        Z = (3.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
-        neg = (
-            torch.arange(S, device=dev)
-            if collide
-            else torch.randint(0, n, (S,), generator=gen, device=dev)
-        )
-        w = torch.randint(0, 600, (n,), generator=gen, device=dev).float() / S
-        got = fused_shared_repulsion(Z, neg, w, a, b)
-        ref = shared_repulsion_plain(Z, neg, w, a, b)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        print(f"K1 {label}: n={n} S={S} d={d} max|kernel-plain|={err:.3e}", flush=True)
-        if not np.isfinite(err) or err > TOL:
-            raise AssertionError(f"K1 {label}: max abs err {err} > {TOL}")
-        worst = max(worst, err)
-
-    n, S, d = N, S_MAIN, 2
-    Z = (3.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
-    neg = torch.randint(0, n, (S,), generator=gen, device=dev)
-    w = torch.randint(0, 600, (n,), generator=gen, device=dev).float() / S
-    ms = cuda_time_ms(lambda: fused_shared_repulsion(Z, neg, w, a, b), reps=200)
-    plain_ms = cuda_time_ms(lambda: shared_repulsion_plain(Z, neg, w, a, b), reps=20)
-    bound_ms, bound_by = k1_bound_ms(n, S, d)
+    got = fused_shared_repulsion(Z, neg, w, a, b, eps)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = shared_repulsion_plain(Z, neg, w, a, b, eps)
+    end.record()
+    ref = shared_repulsion_plain(Z.double(), neg, w.double(), a, b, eps)
+    torch.cuda.synchronize()
+    e_plain = float((got - plain).abs().max())
+    e_64 = float((got.double() - ref).abs().max())
+    plain_64 = float((plain.double() - ref).abs().max())
+    lim_64 = min(K1_HARD, 3.0 * max(plain_64, 2e-6))
+    n, d = Z.shape
     print(
-        f"K1 time n={n} S={S} d={d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})",
+        f"K1 {label}: n={n} S={neg.shape[0]} d={d} eps={eps:g} max|kernel-plain|={e_plain:.3e} "
+        f"(limit {TOL_K1:.1e}) max|kernel-float64|={e_64:.3e} (limit {lim_64:.1e}) "
+        f"max|plain-float64|={plain_64:.3e}",
         flush=True,
     )
-    return {
-        "name": "umap_shared_repulsion (K1)",
-        "route": "cuda",
-        "source": "torchdr_tpu_torch/ops/csrc/umap_repulsion.cu",
-        "replaces": "torchdr_tpu/ops/pallas/umap_kernel.py:68",
-        "launches": None,
-        "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K1 {label}: non-finite values")
+    if not e_64 <= lim_64:
+        raise AssertionError(f"K1 {label}: max |kernel - float64| {e_64} > {lim_64}")
+    if not e_plain <= TOL_K1:
+        raise AssertionError(f"K1 {label}: max |kernel - plain| {e_plain} > {TOL_K1}")
+    return e_plain, start.elapsed_time(end)
+
+
+def check_k1(torch, gen, a: float, b: float) -> dict:
+    """K1 against the float64 evaluation and its plain version on the card,
+    then its times (:func:`time_k1`). ``gen`` draws the cases that the
+    script has always had, so the later phases see the inputs they always
+    saw; the newer cases draw from a generator of their own."""
+    dev = torch.device("cuda")
+    gen_new = torch.Generator(device="cuda")
+    gen_new.manual_seed(SEED + 1)
+    worst = 0.0
+    for label, n, collide in (
+        ("main d=2", N, False), ("main d=3", N, False), ("ragged n", N - 37, False),
+        ("self-collisions", N, True),
+    ):
+        d = 3 if label == "main d=3" else 2
+        neg = torch.arange(S_MAIN, device=dev) if collide else None
+        worst = max(worst, hold_k1(torch, label, *k1_inputs(torch, gen, n, S_MAIN, d, neg), a, b)[0])
+    first = k1_inputs(torch, gen, *K1_SHAPES[0])
+
+    # the sample of 2048 at small n, with its own rows in it
+    Z, neg, w = k1_inputs(torch, gen_new, N_TSNE, 2048, 2)
+    neg[::2] = torch.arange(1024, device=dev)
+    worst = max(worst, hold_k1(torch, "S=2048, half self-collisions", Z, neg, w, a, b)[0])
+    # two rows 1e-4 apart, one of them in the sample: |coef| ~ 2b/eps
+    Z, neg, w = k1_inputs(torch, gen_new, N, S_MAIN, 2)
+    Z[1] = Z[0] + 1e-4
+    neg[0] = 0
+    worst = max(worst, hold_k1(torch, "near-collision", Z, neg, w, a, b)[0])
+    # eps = 0: coef is infinite at D = 0, so the kernel tests the ids
+    Z, neg, w = k1_inputs(torch, gen_new, N, S_MAIN, 2, torch.arange(S_MAIN, device=dev))
+    worst = max(worst, hold_k1(torch, "eps=0, self-collisions", Z, neg, w, a, b, eps=0.0)[0])
+    # int32 ids, as the estimator's sampler may hand them
+    Z, neg, w = k1_inputs(torch, gen_new, 5003, 301, 2)
+    worst = max(worst, hold_k1(torch, "int32 ids, ragged S", Z, neg.int(), w, a, b)[0])
+    return time_k1(torch, gen_new, a, b, first, worst)
+
+
+def time_k1(torch, gen, a: float, b: float, first, worst: float) -> dict:
+    """K1's times at ``K1_SHAPES``: the eager call, as the fit makes it, over
+    many calls, and the device time of the call replayed from a CUDA graph
+    (the host's time to enqueue a call is of the same order at the UMAP
+    path's size); the plain version timed beside it (at n = 1,000,000 its
+    one comparison call). The record is the first shape's, the UMAP path's."""
+    from torchdr_tpu_torch.ops.cuda.umap_kernel import (
+        fused_shared_repulsion,
+        shared_repulsion_plain,
+    )
+
+    times, record = [], None
+    for i, (n, S, d) in enumerate(K1_SHAPES):
+        Z, neg, w = first if i == 0 else k1_inputs(torch, gen, n, S, d)
+        err, plain_once = hold_k1(torch, f"timed shape {i}", Z, neg, w, a, b)
+        large = n * S > 1 << 26
+        fn = lambda: fused_shared_repulsion(Z, neg, w, a, b)  # noqa: E731
+        ms = cuda_time_ms(fn, reps=20 if large else 200)
+        device_ms = graph_ms(fn)
+        plain_ms = plain_once if large else cuda_time_ms(
+            lambda: shared_repulsion_plain(Z, neg, w, a, b), reps=10)
+        bound_ms, bound_by = k1_bound_ms(n, S, d)
+        floor_ms = k1_sfu_floor_ms(n, S, K1_SFU_CALLS)
+        print(
+            f"K1 time n={n} S={S} d={d}: kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a "
+            f"CUDA graph), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"special-function floor {floor_ms:.5f} ms ({K1_SFU_CALLS:g} per pair)",
+            flush=True,
+        )
+        times.append({"kernel": "K1", "n": n, "S": S, "d": d, "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "sfu_floor_ms": floor_ms,
+                      "max_abs_err": err})
+        if i == 0:
+            record = {
+                "name": "umap_shared_repulsion (K1)",
+                "route": "cuda",
+                "source": "torchdr_tpu_torch/ops/csrc/umap_repulsion.cu",
+                "replaces": "torchdr_tpu/ops/pallas/umap_kernel.py:68",
+                "launches": None,
+                "max_abs_err": None,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,  # no single PyTorch call computes this function
+            }
+        worst = max(worst, err)
+    record["max_abs_err"] = worst
+    print("k1_times " + json.dumps(times), flush=True)
+    return record
 
 
 def rowlse_bound_ms(n: int, d: int, which: str, kernel: str) -> tuple:
@@ -532,8 +643,9 @@ def main() -> int:
     )
 
     # 2. build
+    k1_only = "--k1" in sys.argv[1:]
     t0 = time.perf_counter()
-    libs = build_libraries()
+    libs = build_libraries(["umap_repulsion"]) if k1_only else build_libraries()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--sass" in sys.argv[1:]:
         sass_report(libs)
@@ -542,6 +654,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     k1 = check_k1(torch, gen, *find_ab_params(1.0, 0.1))  # UMAP's defaults
+    if k1_only:
+        print(smi, flush=True)
+        return 0
     k2, k3 = check_k2_k3(torch, gen)
 
     # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784

@@ -20,7 +20,11 @@ from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     rowlse_fwd_plain,
 )
 from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse
-from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion, shared_repulsion_plain
+from torchdr_tpu_torch.ops.cuda.umap_kernel import (
+    fused_shared_repulsion,
+    rows_per_tile,
+    shared_repulsion_plain,
+)
 
 A, B, EPS = 1.577, 0.8951, 1e-3
 
@@ -32,20 +36,89 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 2, 3, 8])
-def test_k1_kernel_matches_plain(cuda, d):
-    """Same arithmetic on both sides (-fmad=false, float64 sums): 1e-5."""
-    rng = np.random.default_rng(d)
-    n, S = 5003, 300  # ragged n, S neither a tile nor a lane multiple
-    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+def _hold_k1(Z, neg, w, eps=EPS):
+    """K1 against a float64 evaluation of its function (the plain version on
+    double tensors) and against the plain version: within 1e-4 of float64
+    (the JAX package's tolerance for its kernel), within 3x the plain
+    version's own distance from float64 (floor 2e-6), and within 2e-5 of the
+    plain version (both round a near-collision's term of up to 28 four or
+    five times in float32, at different places; ``chip_smoke.py`` derives
+    it)."""
+    before = fused_shared_repulsion.launches
+    got = fused_shared_repulsion(Z, neg, w, A, B, eps)
+    assert fused_shared_repulsion.launches == before + 1
+    plain = shared_repulsion_plain(Z, neg, w, A, B, eps)
+    ref = shared_repulsion_plain(Z.double(), neg, w.double(), A, B, eps)
+    assert got.shape == Z.shape and torch.isfinite(got).all()
+    plain_64 = float((plain.double() - ref).abs().max())
+    assert float((got.double() - ref).abs().max()) <= min(1e-4, 3.0 * max(plain_64, 2e-6))
+    assert float((got - plain).abs().max()) <= 2e-5
+
+
+def _k1_inputs(cuda, n, S, d, seed, scale=3.0):
+    rng = np.random.default_rng(seed)
+    Z = torch.from_numpy((scale * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
     neg = torch.from_numpy(rng.integers(0, n, S)).to(cuda)
     w = torch.from_numpy((rng.integers(0, 40, n) / S).astype(np.float32)).to(cuda)
+    return Z, neg, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 7, 512, 2048, 2051])
+@pytest.mark.parametrize("n", ["1", "2", "tile-1", "tile", "tile+1", "5003"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_k1_kernel_matches_plain(cuda, d, n, S):
+    """The ragged edges of the grid: a block of threads that walk the whole
+    sample owns ``rows_per_tile(d, 1)`` rows, and with the sample split over
+    32 lanes an eighth of a warp's; n one under, at and one over the former,
+    the smallest n, and a ragged n of many tiles. S of one negative, less
+    than a step, whole steps, and a ragged last step."""
+    tile = rows_per_tile(d, 1)
+    n = {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1}.get(n) or int(n)
+    _hold_k1(*_k1_inputs(cuda, n, S, d, seed=n + d + S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "own_rows", "duplicate_ids", "duplicate_rows", "near_collision", "scale_1e3",
+    "scale_1e-3_clips", "int32_ids", "eps_0", "staged_in_tiles", "staged_in_tiles_eps_0",
+])
+def test_k1_special_inputs(cuda, case):
+    n, S, eps = 5003, 512, EPS
+    if case.startswith("staged_in_tiles"):
+        S = 6000  # more than a block stages at once
+    Z, neg, w = _k1_inputs(cuda, n, S, 2, seed=7)
+    if case == "own_rows":  # every negative is one of the first S rows
+        neg = torch.arange(S, device=cuda)
+    elif case == "duplicate_ids":
+        neg[1::2] = neg[::2]
+    elif case == "duplicate_rows":  # D = 0 between different rows
+        Z[n // 2:] = Z[: n - n // 2].clone()
+    elif case == "near_collision":  # two rows 1e-4 apart, one of them sampled
+        Z[1] = Z[0] + 1e-4
+        neg[0] = 0
+    elif case == "scale_1e3":  # D ~ 1e7: every term tiny
+        Z = Z * 1e3
+    elif case == "scale_1e-3_clips":  # D << eps: |coef| ~ 2b/eps, every row clips
+        Z, w = Z * 1e-3 / 3.0, w + 1e4
+    elif case == "int32_ids":
+        neg = neg.int()
+    elif case.endswith("eps_0"):  # the instantiation that tests the ids
+        neg[:256] = torch.arange(256, device=cuda)
+        eps = 0.0
+    _hold_k1(Z.contiguous(), neg, w, eps)
+    if case == "scale_1e-3_clips":
+        assert float(fused_shared_repulsion(Z, neg, w, A, B).abs().min()) == 4.0
+
+
+@pytest.mark.cuda
+def test_k1_empty_sample_and_no_rows(cuda):
+    Z, _, w = _k1_inputs(cuda, 300, 4, 2, seed=3)
+    none = torch.empty((0,), dtype=torch.int64, device=cuda)
+    assert float(fused_shared_repulsion(Z, none, w, A, B).abs().max()) == 0.0
     before = fused_shared_repulsion.launches
-    got = fused_shared_repulsion(Z, neg, w, A, B, EPS)
-    assert fused_shared_repulsion.launches == before + 1
-    want = shared_repulsion_plain(Z, neg, w, A, B, EPS)
-    assert float((got - want).abs().max()) <= 1e-5
+    out = fused_shared_repulsion(Z[:0], none, w[:0], A, B)
+    assert out.shape == (0, 2) and fused_shared_repulsion.launches == before
 
 
 @pytest.mark.cuda

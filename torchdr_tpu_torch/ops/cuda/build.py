@@ -15,6 +15,7 @@ imported. :func:`build_libraries` starts one ``nvcc`` per source at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +23,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "ops" / "csrc"
@@ -38,7 +41,7 @@ _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "umap_repulsion": (
         "umap_shared_repulsion",
-        [_V, _V, _V, _V, _V, _I, _I, _I, _F, _F, _F, _V],
+        [_V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _F, _F, _V],
     ),
     "rowlse_fwd": ("rowlse_fwd", [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
     "rowlse_bwd": ("rowlse_bwd", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V]),
@@ -100,3 +103,18 @@ def load_function(name: str):
         fn.restype = ctypes.c_int
         _LOADED[name] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(fn, Z, *args):
+    """Call the library's entry point on Z's device and its current stream."""
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    if torch.cuda.current_device() == Z.device.index:
+        return fn(*args, stream)
+    with torch.cuda.device(Z.device):
+        return fn(*args, stream)

@@ -32,11 +32,9 @@ for a CPU tensor. Each counts its launches in ``.launches``.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from .build import load_function
+from .build import launch, load_function, sm_count
 
 #: largest embedding width the kernels are instantiated for
 MAX_D = 8
@@ -75,11 +73,6 @@ def _check_cuda(Z, fn_name):
         raise ValueError(f"{fn_name} takes 1 <= d <= {MAX_D} on the card, got d={Z.shape[1]}.")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def rows_per_block(d: int) -> int:
     """Rows of Z one block owns: each thread a register tile of 4 rows, or
     2 above d = 4."""
@@ -115,15 +108,6 @@ def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False):
 def staged_bytes(chunk: int, d: int, backward: bool) -> int:
     """Dynamic shared memory a block of the kernel asks for."""
     return chunk * column_bytes(d, backward)
-
-
-def _launch(fn, Z, *args):
-    """Call the library's entry point on Z's device and its current stream."""
-    stream = torch.cuda.current_stream(Z.device).cuda_stream
-    if torch.cuda.current_device() == Z.device.index:
-        return fn(*args, stream)
-    with torch.cuda.device(Z.device):
-        return fn(*args, stream)
 
 
 def _sq_block(Zb, Z):
@@ -198,11 +182,11 @@ def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     fn = load_function("rowlse_fwd")
     n, d = Z.shape
     gaussian = kernel == "gaussian"
-    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index), d, backward=False)
+    n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=False)
     out = torch.empty((n,), dtype=torch.float32, device=Z.device)
     # the chunks' sums and, for the gaussian kernel, their shifts
     part = torch.empty((2 if gaussian else 1, n_chunks, n), dtype=torch.float64, device=Z.device)
-    rc = _launch(
+    rc = launch(
         fn, Z, Z.data_ptr(), out.data_ptr(), part.data_ptr(),
         n, d, n_chunks, chunk, int(gaussian), int(bool(exclude_diag)),
     )
@@ -227,10 +211,10 @@ def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
     _check_cuda(Z, "rowlse_bwd")
     fn = load_function("rowlse_bwd")
     n, d = Z.shape
-    n_chunks, chunk = column_chunks(n, _sm_count(Z.device.index), d, backward=True)
+    n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=True)
     out = torch.empty_like(Z)
     part = torch.empty((n_chunks, n, d), dtype=torch.float64, device=Z.device)
-    rc = _launch(
+    rc = launch(
         fn, Z, Z.data_ptr(), row_lse.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
         n, d, n_chunks, chunk, int(kernel == "gaussian"),
     )

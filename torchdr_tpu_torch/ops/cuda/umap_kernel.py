@@ -3,29 +3,47 @@
 Replaces the TPU kernel ``torchdr_tpu/ops/pallas/umap_kernel.py``
 (``fused_shared_repulsion``, body ``_repulsion_kernel``). The CUDA source is
 ``ops/csrc/umap_repulsion.cu``; its note gives the bound on the card (the
-n·S pairs' log, exp and divide, or launch latency at the UMAP path's size,
-never memory: about 1.2 MB moves per call) and what the design does about
-it (one row per thread, negatives staged in shared memory, no (n, S)
-intermediate).
+n·S pairs' logarithm, exponential and reciprocal, one special-function
+result each, never memory: about 1.2 MB moves per call) and what the design
+does about it (approximate lg2, ex2 and reciprocal, a row's negatives split
+across lanes of a warp and merged by shuffles, two rows and eight
+independent negatives per thread, float32 sums over runs of 16 then float64,
+no id test for eps > 0, the sample gathered and staged in shared memory by
+the kernel, no (n, S) intermediate).
 
 :func:`fused_shared_repulsion` launches the kernel for a CUDA tensor and
 takes :func:`shared_repulsion_plain`, the same function in plain PyTorch,
 only for a CPU tensor. It counts its launches in
-``fused_shared_repulsion.launches``.
+``fused_shared_repulsion.launches``. :func:`repulsion_grid` sizes the
+kernel's grid in pure Python.
 
 Both compute grad_i = clip(w_i · Σ_s coef_is (z_i − z_s), ±4), which is
 the TPU kernel's (Σ_s coef) z_i − Σ_s coef z_s written without its float32
-cancellation at near-collisions, with the sums over s in float64.
+cancellation at near-collisions. The plain version rounds every operation
+in float32 and sums in float64; the kernel differs from it by its
+approximate special functions, its fused multiply-adds and its float32
+runs, by up to 1.3e-5 where a negative lies within sqrt(eps) of a row
+(``chip_smoke.py`` holds both to a float64 evaluation, and the kernel to
+three times the plain version's distance from it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .build import load_function
+from .build import launch, load_function, sm_count
 
 #: largest embedding width the kernel is instantiated for
 MAX_D = 8
+
+# The source's constants, which the grid below must agree with.
+_THREADS = 128  # kThreads
+_BLOCKS_PER_SM = 6  # kBlocksPerSM: resident blocks per SM, which the launch bounds allow for
+# kMaxStaged, the most a block stages: an SM's 227 KB of shared memory, 1 KB
+# of it reserved per block, holds that many blocks
+_STAGED_BYTES = 227 * 1024 // _BLOCKS_PER_SM - 1024
+_UNROLL = 8  # Shape<D>::kUnroll at d <= 2, half of it above: negatives a lane takes per step
+_MAX_LANES = 32  # a row's negatives are split within one warp
 
 
 def _check(Z, neg_ids, weight):
@@ -44,12 +62,52 @@ def _check(Z, neg_ids, weight):
         raise ValueError("Z and weight must be contiguous.")
 
 
-def shared_repulsion_plain(Z, neg_ids, weight, a: float, b: float, eps: float = 1e-3,
-                           chunk_pairs: int = 1 << 22):
-    """The kernel's function in plain PyTorch, over (rows, S) chunks.
+def rows_per_thread(d: int) -> int:
+    """Rows of Z one thread owns (Shape<D>::kRows)."""
+    return 2 if d <= 4 else 1
 
-    Operation for operation the arithmetic of ``umap_repulsion.cu``, so the
-    two agree on the card to the last bits of exp/log.
+
+def record_bytes(d: int) -> int:
+    """Bytes of one staged negative: z_s padded to an aligned vector."""
+    return 4 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8)
+
+
+def rows_per_tile(d: int, lanes: int) -> int:
+    """Rows one block takes at a time when ``lanes`` lanes share a row."""
+    return rows_per_thread(d) * _THREADS // lanes
+
+
+def repulsion_grid(n: int, S: int, d: int, sm_count: int, masked: bool = False):
+    """(lanes, blocks, s_tile) of the kernel's launch.
+
+    ``lanes`` lanes of a warp share the negatives of the same rows: the
+    fewest (a power of two) whose row tiles, one per block, fill three
+    quarters of the blocks the card holds at once, while a lane keeps two
+    full steps of the sample. Fewer leave SMs idle; more cost a staging of
+    the sample and a merge for fewer rows each. At large n the rows alone
+    fill the card and a thread walks the whole sample. The sample is staged
+    ``s_tile`` negatives at a time: all of it where that fits the block's
+    share of shared memory (with the ids, when ``masked``), else whole steps
+    of a warp.
+    """
+    places = sm_count * _BLOCKS_PER_SM
+    lanes = 1
+    while (lanes < _MAX_LANES and S >= 4 * lanes * _UNROLL
+           and 4 * -(-n // rows_per_tile(d, lanes)) < 3 * places):
+        lanes *= 2
+    step = _MAX_LANES * _UNROLL
+    fits = _STAGED_BYTES // (record_bytes(d) + (4 if masked else 0)) // step * step
+    return lanes, max(1, -(-n // rows_per_tile(d, lanes))), max(1, min(S, fits))
+
+
+def shared_repulsion_plain(Z, neg_ids, weight, a: float, b: float, eps: float = 1e-3,
+                           chunk_pairs: int = 1 << 22, mask_self: bool = True):
+    """The kernel's function in plain PyTorch, over (rows, S) chunks: every
+    operation rounded in Z's type, the sums over s in float64. On float64
+    tensors it is the yardstick both versions are held to.
+
+    ``mask_self=False`` leaves out the test s == i: for eps > 0 the term
+    coef·(z_i − z_i) is 0 without it, which the kernel relies on.
     """
     n, d = Z.shape
     neg_ids = neg_ids.long()
@@ -66,9 +124,10 @@ def shared_repulsion_plain(Z, neg_ids, weight, a: float, b: float, eps: float = 
             D = D + diff[..., c] * diff[..., c]
         t = torch.exp(b * torch.log(torch.clamp(D, min=1e-30)))
         coef = torch.div(two_b, (D + eps) * (1.0 + a * t))
-        ids = torch.arange(r0, r0 + Zb.shape[0], device=Z.device)
-        coef = torch.where(neg_ids[None, :] == ids[:, None], torch.zeros_like(coef), coef)
-        g = (coef[:, :, None] * diff).double().sum(dim=1).float()
+        if mask_self:
+            ids = torch.arange(r0, r0 + Zb.shape[0], device=Z.device)
+            coef = torch.where(neg_ids[None, :] == ids[:, None], torch.zeros_like(coef), coef)
+        g = (coef[:, :, None] * diff).double().sum(dim=1).to(Z.dtype)
         out[r0 : r0 + rows] = torch.clamp(g * weight[r0 : r0 + rows, None], -4.0, 4.0)
     return out
 
@@ -79,9 +138,10 @@ def fused_shared_repulsion(Z, neg_ids, weight, a: float, b: float, eps: float = 
     Parameters
     ----------
     Z : (n, d) float32 embedding, 1 <= d <= 8, contiguous.
-    neg_ids : (S,) integer ids of the shared negative sample. Any S: the
-        JAX package takes its TPU kernel only for S % 128 == 0 (lane
-        alignment), which has no meaning on the card.
+    neg_ids : (S,) integer ids of the shared negative sample, each in
+        [0, n); int64 and contiguous costs no conversion. Any S: the JAX
+        package takes its TPU kernel only for S % 128 == 0 (lane alignment),
+        which has no meaning on the card.
     weight : (n,) float32 per-row weight (neg_counts · rate / S).
     a, b, eps : UMAP output-kernel constants.
 
@@ -95,16 +155,18 @@ def fused_shared_repulsion(Z, neg_ids, weight, a: float, b: float, eps: float = 
         raise ValueError(f"fused_shared_repulsion: unsupported device {Z.device}.")
     fn = load_function("umap_repulsion")
     n, d = Z.shape
-    neg_ids = neg_ids.long().contiguous()
-    Zneg = Z.index_select(0, neg_ids)  # the (S, d) gather, in torch
+    if neg_ids.dtype != torch.int64 or not neg_ids.is_contiguous():
+        neg_ids = neg_ids.long().contiguous()
+    S = neg_ids.shape[0]
     out = torch.empty_like(Z)
-    stream = torch.cuda.current_stream(Z.device).cuda_stream
-    with torch.cuda.device(Z.device):
-        rc = fn(
-            Z.data_ptr(), Zneg.data_ptr(), neg_ids.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), n, d, neg_ids.shape[0], float(a), float(b), float(eps),
-            stream,
-        )
+    if n == 0:
+        return out
+    # eps <= 0: coef is infinite at D = 0, so the kernel tests the ids
+    lanes, _, s_tile = repulsion_grid(n, S, d, sm_count(Z.device.index), masked=not eps > 0)
+    rc = launch(
+        fn, Z, Z.data_ptr(), neg_ids.data_ptr(), weight.data_ptr(), out.data_ptr(),
+        n, d, S, s_tile, lanes, float(a), float(b), float(eps),
+    )
     if rc != 0:
         raise RuntimeError(f"umap_shared_repulsion launch failed: cudaError {rc}.")
     fused_shared_repulsion.launches += 1
