@@ -5,28 +5,36 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA kernel of the main path, from the sources in the
-   checkout (one nvcc per source, started together);
-3. kernels: each kernel (K1, K2, K3) against its plain PyTorch version on
-   the card (K1 also against a float64 evaluation), at the main paths'
-   shapes plus edge cases, with its time, the plain version's time and its
-   bound;
+2. build: every CUDA kernel, from the sources in the checkout (one nvcc per
+   source, started together);
+3. kernels: each kernel of the fits (K1, K2, K3) against its plain PyTorch
+   version on the card (K1 also against a float64 evaluation), at the main
+   paths' shapes plus edge cases, with its time, the plain version's time
+   and its bound;
 4. fits, each with every kernel launch counter set to 0 just before and
    read just after: ``UMAP(random_state=0).fit_transform(X)`` on 60,000 x
    784 float32 synthetic data (50 Gaussian clusters, seeded), then
    ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
    10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
    10-NN label accuracy of the embedding;
-5. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels
-   (``cuobjdump -res-usage``) and the instruction counts of the d = 2
-   kernels' inner loops (``cuobjdump -sass``);
-6. with ``--profile`` only: device time by kernel and the device's idle
+5. gather: the bucketed gathers G1-G3 against their plain versions bit for
+   bit, at small windows and at the attraction-gather microbenchmark's full
+   shape (20,312 windows of 512 rows, 1,024 ids each, D = 8), with their
+   times replayed from a CUDA graph; then that microbenchmark
+   (``torchdr_tpu_torch.benchmarks.gather_microbench.main``), which times
+   them eager, with every launch counter set to 0 just before and read just
+   after;
+6. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+   for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
+   those kernels' inner loops (``cuobjdump -sass``);
+7. with ``--profile`` only: device time by kernel and the device's idle
    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
    (torch.profiler).
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
-kernel in one call. It then prints no result line.
+kernel in one call. With ``--gather`` it builds the gathers alone and runs
+phase 5 only (with ``--sass``, their report). Either prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -80,6 +88,11 @@ TOL_K2 = 1e-5
 # (plain); a force is a sum of terms of both signs, so the tiles' error is
 # relative to the sum of |terms|, which exceeds |force|.
 TOL_K3 = 1e-4
+# The gathers G1-G3 are held to their plain versions bit for bit: each output
+# element is one term. Small cases: one window of 128 ids at each (D, R);
+# the full shape is compared GATHER_CHUNK windows at a time.
+GATHER_CASES = tuple((d, r) for d in (1, 2, 3, 8) for r in (32, 64, 512))
+GATHER_CHUNK = 2048
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # special-function unit (reciprocal, exp2): 16 results per clock per SM, 132
@@ -129,15 +142,21 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
 
 def sass_report(libraries) -> None:
     """For each built library: the registers and stack of its d = 2 and d = 3
-    kernels (``cuobjdump -res-usage``), and each innermost loop (a backward
-    branch with no loop inside) of its d = 2 kernels with its instruction
-    count by opcode (``cuobjdump -sass``). A loop's instructions over the
-    pairs one iteration evaluates are the issue slots a pair costs."""
+    kernels (d = 8 for the gathers, the microbenchmark's width; ``cuobjdump
+    -res-usage``), and each innermost loop (a backward branch with no loop
+    inside) of its d = 2 kernels (d = 8 for the gathers) with its
+    instruction count by opcode (``cuobjdump -sass``). A loop's instructions
+    over the pairs one iteration evaluates are the issue slots a pair costs."""
     import collections
     import re
 
+    def shown(mangled, widths):
+        if "bucket" in mangled:
+            widths = ("ILi8E",)
+        return any(w in mangled for w in widths)
+
     def label(mangled):
-        m = re.search(r"\d\d((?:rowlse|repulsion)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
+        m = re.search(r"\d\d((?:rowlse|repulsion|bucket)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
         if m is None:
             return mangled
         modes = ("", ", masked") if "repulsion" in m.group(1) else (", student", ", gaussian")
@@ -152,11 +171,11 @@ def sass_report(libraries) -> None:
             if flag == "-res-usage":
                 for name, regs, stack in re.findall(
                         r"Function (\S+):\s*REG:(\d+) STACK:(\d+)", text):
-                    if "ILi2E" in name or "ILi3E" in name:
+                    if shown(name, ("ILi2E", "ILi3E")):
                         print(f"{label(name)}: {regs} registers, stack {stack}")
                 continue
             for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", text, re.S):
-                if "ILi2E" not in name:
+                if not shown(name, ("ILi2E",)):
                     continue
                 instrs = [(int(a, 16), re.sub(r"^@!?U?P\d+\s+", "", t))
                           for a, t in re.findall(r"/\*([0-9a-f]{4})\*/\s+(.*?);", body)]
@@ -512,6 +531,124 @@ def time_k2_k3(torch, gen, worst) -> tuple:
     return tuple(records)
 
 
+def gather_kernels():
+    """(variant, wrapper, plain version, line of the TPU kernel in
+    benchmarks/_gather_microbench.py) of G1-G3."""
+    from torchdr_tpu_torch.ops.cuda.gather_kernel import (
+        bucket_2level,
+        bucket_2level_plain,
+        bucket_onehot,
+        bucket_onehot_plain,
+        bucket_take,
+        bucket_take_plain,
+    )
+
+    return (("take", bucket_take, bucket_take_plain, 75),
+            ("onehot", bucket_onehot, bucket_onehot_plain, 99),
+            ("2level", bucket_2level, bucket_2level_plain, 132))
+
+
+def hold_gather(torch, label, kernel, plain, Zb, idx, chunk=None) -> float:
+    """A gather against its plain version, bit for bit (``torch.equal``),
+    in chunks of ``chunk`` windows; returns max |kernel - plain| (0.0)."""
+    got = kernel(Zb, idx)
+    torch.cuda.synchronize()
+    nb = Zb.shape[0]
+    chunk = chunk or max(1, nb)
+    err = 0.0
+    for s in range(0, nb, chunk):
+        want = plain(Zb[s : s + chunk], idx[s : s + chunk])
+        part = got[s : s + chunk]
+        if part.shape != want.shape or not bool(torch.isfinite(part).all()):
+            raise AssertionError(f"{label}: shape {tuple(part.shape)} or non-finite values")
+        err = max(err, float((part - want).abs().max()))
+        if not torch.equal(part, want):
+            raise AssertionError(f"{label}: max |kernel - plain| {err}, not bit for bit")
+    return err
+
+
+def check_gather(torch) -> dict:
+    """G1-G3 against their plain versions on the card, at the small cases of
+    ``GATHER_CASES`` (ids at 0 and R - 1) and at the microbenchmark's full
+    shape, then their times there: the device time replayed from a CUDA
+    graph and the plain version's (the eager time is the microbenchmark's
+    ``kernel_ms``). Returns {variant: times}."""
+    from torchdr_tpu_torch.benchmarks import gather_microbench as gm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    kernels = gather_kernels()
+    worst = {name: 0.0 for name, *_ in kernels}
+    for d, r in GATHER_CASES:
+        Zb, idx = gm.make_bucketed(gen, 128, d, r, 128, device=dev)
+        idx[0, 0, 0], idx[0, 7, 15] = 0, r - 1
+        for name, kernel, plain, _ in kernels:
+            worst[name] = max(worst[name], hold_gather(torch, f"{name} D={d} R={r}", kernel,
+                                                       plain, Zb, idx))
+    print(f"gather small cases: {len(GATHER_CASES)} (D, R) x 3 kernels equal to plain", flush=True)
+
+    Zb, idx = gm.make_bucketed(gen, gm.N * gm.W, device=dev)
+    nb, r, d = Zb.shape
+    c = idx.shape[1] * idx.shape[2]
+    times = {}
+    for name, kernel, plain, _ in kernels:
+        err = hold_gather(torch, f"{name} full shape", kernel, plain, Zb, idx, GATHER_CHUNK)
+        device_ms = graph_ms(lambda: kernel(Zb, idx), calls=5, reps=4)
+        plain_ms = cuda_time_ms(lambda: plain(Zb, idx), reps=3)
+        times[name] = {"device_ms": device_ms, "plain_ms": plain_ms,
+                       "max_abs_err": max(worst[name], err)}
+        print(f"gather {name} nb={nb} R={r} D={d} c={c}: kernel {device_ms:.4f} ms replayed "
+              f"from a CUDA graph, plain {plain_ms:.4f} ms, "
+              f"max|kernel-plain|={times[name]['max_abs_err']}", flush=True)
+    print("gather_times " + json.dumps(times), flush=True)
+    return times
+
+
+def run_gather_path(torch, counters, times) -> list:
+    """The attraction-gather microbenchmark at its full shape, with every
+    launch counter set to 0 just before and read just after; fails unless
+    each of G1-G3 launched and no other kernel did. Returns the kernel
+    records of G1-G3."""
+    from torchdr_tpu_torch.benchmarks import gather_microbench as gm
+
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = gm.main(device="auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"gather path: {wall:.2f} s, launches {json.dumps(launches)}", flush=True)
+    by_variant = {rec["variant"]: rec for rec in results}
+    if sorted(by_variant) != sorted(gm.VARIANTS):
+        raise AssertionError(f"gather path: variants {sorted(by_variant)}")
+    for rec in results:
+        if not all(rec[k] > 0 for k in ("ms", "ns_per_idx")):
+            raise AssertionError(f"gather path: bad record {rec}")
+    for fn_name, count in launches.items():
+        if fn_name.startswith("bucket_") != (count > 0):
+            raise AssertionError(f"gather path: {fn_name} launched {count} times")
+    records = []
+    for name, kernel, _, line in gather_kernels():
+        rec, t = by_variant[name], times[name]
+        records.append({
+            "name": f"{kernel.__name__} (G{len(records) + 1})",
+            "route": "cuda",
+            "source": "torchdr_tpu_torch/ops/csrc/bucket_gather.cu",
+            "replaces": f"benchmarks/_gather_microbench.py:{line}",
+            "launches": launches[kernel.__name__],
+            "max_abs_err": t["max_abs_err"],
+            "ms": rec["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": rec["bound_ms"],  # from the rows this run's ids touch
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],  # one torch.gather on the bucketed layout
+        })
+    return records
+
+
 def make_data(n: int):
     """n x 784 float32 rows around 50 Gaussian cluster centres, seed 0."""
     rng = np.random.default_rng(SEED)
@@ -631,7 +768,8 @@ def main() -> int:
     from torchdr_tpu_torch.ops.cuda.reduce_kernel import rowlse_bwd, rowlse_fwd
     from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
 
-    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd)
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd,
+                *(kernel for _, kernel, _, _ in gather_kernels()))
 
     # 1. device
     smi = nvidia_smi_line()
@@ -644,11 +782,19 @@ def main() -> int:
 
     # 2. build
     k1_only = "--k1" in sys.argv[1:]
+    gather_only = "--gather" in sys.argv[1:]
     t0 = time.perf_counter()
-    libs = build_libraries(["umap_repulsion"]) if k1_only else build_libraries()
+    if k1_only or gather_only:
+        libs = build_libraries(["umap_repulsion"] if k1_only else ["bucket_gather"])
+    else:
+        libs = build_libraries()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--sass" in sys.argv[1:]:
         sass_report(libs)
+    if gather_only:
+        run_gather_path(torch, counters, check_gather(torch))
+        print(smi, flush=True)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -676,11 +822,14 @@ def main() -> int:
     run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
             counters, expect=("rowlse_fwd", "rowlse_bwd"))
 
+    # 5. the gathers and the attraction-gather microbenchmark
+    gathers = run_gather_path(torch, counters, check_gather(torch))
+
     if "--profile" in sys.argv[1:]:
         print("profile " + json.dumps(profile_optimize(torch, UMAP, X)), flush=True)
         print("profile " + json.dumps(profile_optimize(torch, TSNE, X10)), flush=True)
 
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, *gathers]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

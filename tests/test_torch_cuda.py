@@ -12,6 +12,14 @@ import pytest
 import torch
 
 from torchdr_tpu_torch import TSNE, UMAP
+from torchdr_tpu_torch.ops.cuda.gather_kernel import (
+    bucket_2level,
+    bucket_2level_plain,
+    bucket_onehot,
+    bucket_onehot_plain,
+    bucket_take,
+    bucket_take_plain,
+)
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     rows_per_block,
     rowlse_bwd,
@@ -247,3 +255,104 @@ def test_tsne_fit_on_the_card_launches_k2_k3_every_step(cuda):
     Z = model.fit_transform(X)
     assert rowlse_fwd.launches == rowlse_bwd.launches == model.n_iter_ == 120
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
+
+
+GATHERS = {
+    "take": (bucket_take, bucket_take_plain),
+    "onehot": (bucket_onehot, bucket_onehot_plain),
+    "2level": (bucket_2level, bucket_2level_plain),
+}
+
+
+def _hold_gather(name, Zb, idx, **kw):
+    """G1-G3 against their plain versions, bit for bit: every output element
+    is one term (a gathered value, or a one-hot sum with one nonzero term)."""
+    kernel, plain = GATHERS[name]
+    before = kernel.launches
+    got = kernel(Zb, idx, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + (1 if got.numel() else 0)
+    want = plain(Zb, idx, **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def _gather_inputs(cuda, nb, r, d, c8, seed):
+    rng = np.random.default_rng(seed)
+    Zb = torch.from_numpy(rng.normal(size=(nb, r, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, r, (nb, 8, c8)).astype(np.int32)).to(cuda)
+    if nb and c8:
+        idx[0, 0, 0], idx[-1, -1, -1] = 0, r - 1
+    return Zb, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb_c8", [(1, 16), (3, 5), (2, 128)])
+@pytest.mark.parametrize("r", [32, 64, 512, 2048])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_kernels_match_plain(cuda, name, d, r, nb_c8):
+    """Every width; windows of one to 64 groups of 32; ids per window in
+    whole and ragged 16-row tiles (c = 40 leaves a warp part of a tile)."""
+    nb, c8 = nb_c8
+    _hold_gather(name, *_gather_inputs(cuda, nb, r, d, c8, seed=d * r + nb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 17, 100])
+@pytest.mark.parametrize("d", [1, 3, 8])
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_kernels_take_any_window(cuda, name, d, r):
+    """Windows that are no multiple of 16 (the products' k-step); G3 with
+    one group of R rows, and with groups of one row."""
+    Zb, idx = _gather_inputs(cuda, 2, r, d, 16, seed=r + d)
+    if name == "2level":
+        for grp in (r, 1):
+            _hold_gather(name, Zb, idx, grp=grp)
+    else:
+        _hold_gather(name, Zb, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, r, grp", [
+    ("onehot", 4000, None), ("onehot", 14_512, None), ("2level", 8192, 32), ("2level", 4096, 8),
+])
+def test_gather_windows_above_48_kb_of_shared_memory(cuda, name, r, grp):
+    """Staged windows beyond the default 48 KB of shared memory: the
+    attribute is raised before the launch."""
+    Zb, idx = _gather_inputs(cuda, 2, r, 8, 64, seed=r)
+    _hold_gather(name, Zb, idx, **({} if grp is None else {"grp": grp}))
+
+
+@pytest.mark.cuda
+def test_gather_windows_beyond_shared_memory_are_refused(cuda):
+    Zb, idx = _gather_inputs(cuda, 1, 14_528, 8, 4, seed=0)
+    before = bucket_onehot.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        bucket_onehot(Zb, idx)
+    assert bucket_onehot.launches == before
+    assert torch.equal(bucket_take(Zb, idx), bucket_take_plain(Zb, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_clamps_ids_to_the_window(cuda, name):
+    Zb, idx = _gather_inputs(cuda, 3, 64, 5, 16, seed=1)
+    idx[0, 0, :3] = torch.tensor([-1, 64, 2**31 - 1], dtype=torch.int32)
+    idx[2, 7, -2:] = torch.tensor([-(2**31), 1000], dtype=torch.int32)
+    _hold_gather(name, Zb, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb, c8", [(0, 16), (4, 0)])
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_empty_input(cuda, name, nb, c8):
+    _hold_gather(name, *_gather_inputs(cuda, nb, 64, 2, c8, seed=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_rejects_wide_rows_on_the_card(cuda, name):
+    Zb = torch.zeros((1, 64, 9), device=cuda)
+    with pytest.raises(ValueError, match="D <= 8"):
+        GATHERS[name][0](Zb, torch.zeros((1, 8, 2), dtype=torch.int32, device=cuda))

@@ -10,6 +10,7 @@ into ``torchdr_tpu_torch/_build/lib<name>-<hash>.so``, where ``<hash>`` is
 taken from the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is compiled when a module is
 imported. :func:`build_libraries` starts one ``nvcc`` per source at once.
+A library may export several entry points (``SIGNATURES``).
 """
 
 from __future__ import annotations
@@ -36,18 +37,23 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-#: the C signature of each library's entry point: (function, argtypes)
+#: each library's entry points: {function: argtypes}
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_GATHER = [_V, _V, _V, _I, _I, _I, _I, _V]  # Zb, idx, out, nb, r, d, c, stream
 SIGNATURES = {
-    "umap_repulsion": (
-        "umap_shared_repulsion",
-        [_V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _F, _F, _V],
-    ),
-    "rowlse_fwd": ("rowlse_fwd", [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V]),
-    "rowlse_bwd": ("rowlse_bwd", [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V]),
+    "umap_repulsion": {
+        "umap_shared_repulsion": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _F, _F, _V],
+    },
+    "rowlse_fwd": {"rowlse_fwd": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V]},
+    "rowlse_bwd": {"rowlse_bwd": [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V]},
+    "bucket_gather": {
+        "bucket_take": _GATHER,
+        "bucket_onehot": _GATHER,
+        "bucket_2level": [*_GATHER[:-1], _I, _V],  # ..., c, grp, stream
+    },
 }
 
-_LOADED: Dict[str, object] = {}  # name -> the bound entry point
+_LOADED: Dict[str, object] = {}  # function -> the bound entry point
 
 
 def _nvcc() -> str:
@@ -92,16 +98,18 @@ def build_libraries(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
     return [library_path(name) for name in names]
 
 
-def load_function(name: str):
-    """The entry point of library ``name``, built first if needed."""
-    fn = _LOADED.get(name)
+def load_function(name: str, entry: str | None = None):
+    """Entry point ``entry`` (by default the only one) of library ``name``,
+    built first if needed."""
+    if entry is None:
+        (entry,) = SIGNATURES[name]
+    fn = _LOADED.get(entry)
     if fn is None:
         (path,) = build_libraries([name])
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(path)), fn_name)
-        fn.argtypes = argtypes
+        fn = getattr(ctypes.CDLL(str(path)), entry)
+        fn.argtypes = SIGNATURES[name][entry]
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _LOADED[entry] = fn
     return fn
 
 
