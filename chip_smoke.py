@@ -18,15 +18,18 @@ Phases, in order; any failure exits non-zero:
    10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
    10-NN label accuracy of the embedding;
 5. gather: the bucketed gathers G1-G3 against their plain versions bit for
-   bit, at small windows and at the attraction-gather microbenchmark's full
-   shape (20,312 windows of 512 rows, 1,024 ids each, D = 8), with their
-   times replayed from a CUDA graph; then that microbenchmark
-   (``torchdr_tpu_torch.benchmarks.gather_microbench.main``), which times
-   them eager, with every launch counter set to 0 just before and read just
-   after;
+   bit, at small windows, at edge cases of their walks over k-steps and
+   members, and at the attraction-gather microbenchmark's full shape (20,312
+   windows of 512 rows, 1,024 ids each, D = 8), with their eager times,
+   their times replayed from a CUDA graph and the times of one
+   ``torch.gather`` for the same function (medians of 7 alternating
+   repeats, with their spread); then that microbenchmark
+   (``torchdr_tpu_torch.benchmarks.gather_microbench.main``) with every
+   launch counter set to 0 just before and read just after;
 6. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
-   those kernels' inner loops (``cuobjdump -sass``);
+   those kernels' inner loops, per tensor-core product where they make any
+   (``cuobjdump -sass``);
 7. with ``--profile`` only: device time by kernel and the device's idle
    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
    (torch.profiler).
@@ -92,7 +95,16 @@ TOL_K3 = 1e-4
 # element is one term. Small cases: one window of 128 ids at each (D, R);
 # the full shape is compared GATHER_CHUNK windows at a time.
 GATHER_CASES = tuple((d, r) for d in (1, 2, 3, 8) for r in (32, 64, 512))
+# Edge cases of the walks (G2 visits only the k-steps of 16 window rows that
+# a tile's 16 ids hit, G3 only the column tiles that hold a row's member of
+# its group of 32): (ids, D, R, c), 16 windows each. R = 1024 and 2048 give
+# G3 two and four stage-1 k-steps; c = 40 leaves a warp part of a tile.
+GATHER_ID_KINDS = ("one k-step", "every k-step", "k-step edges", "one member", "every member")
+GATHER_EDGE_CASES = tuple(
+    (kind, d, r, 1024) for kind in GATHER_ID_KINDS for d in (3, 8) for r in (512, 1024, 2048)
+) + tuple(("uniform", d, r, 40) for d in (1, 8) for r in (512, 2048))
 GATHER_CHUNK = 2048
+GATHER_REPEATS = 7  # eager, graph and library times: medians of alternating repeats
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # special-function unit (reciprocal, exp2): 16 results per clock per SM, 132
@@ -145,8 +157,9 @@ def sass_report(libraries) -> None:
     kernels (d = 8 for the gathers, the microbenchmark's width; ``cuobjdump
     -res-usage``), and each innermost loop (a backward branch with no loop
     inside) of its d = 2 kernels (d = 8 for the gathers) with its
-    instruction count by opcode (``cuobjdump -sass``). A loop's instructions
-    over the pairs one iteration evaluates are the issue slots a pair costs."""
+    instruction count by opcode (``cuobjdump -sass``), and over its tensor-core
+    products (``HMMA``) where it has any. A loop's instructions over the
+    pairs (or products) one iteration makes are the issue slots each costs."""
     import collections
     import re
 
@@ -159,7 +172,8 @@ def sass_report(libraries) -> None:
         m = re.search(r"\d\d((?:rowlse|repulsion|bucket)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
         if m is None:
             return mangled
-        modes = ("", ", masked") if "repulsion" in m.group(1) else (", student", ", gaussian")
+        modes = {"rep": ("", ", masked"), "row": (", student", ", gaussian"),
+                 "buc": (", k-steps walked", ", one k-step")}[m.group(1)[:3]]
         mode = "" if m.group(3) is None else modes[int(m.group(3))]
         return f"{m.group(1)}<d={m.group(2)}{mode}>"
 
@@ -187,8 +201,10 @@ def sass_report(libraries) -> None:
                     ops = collections.Counter(
                         t.split()[0] if t.startswith("MUFU") else t.split()[0].split(".")[0]
                         for a, t in instrs if lo <= a <= hi)
-                    print(f"{label(name)}: loop {lo:#x}-{hi:#x}, {sum(ops.values())} "
-                          f"instructions {dict(ops.most_common())}")
+                    total = sum(ops.values())
+                    per_mma = f", {total / ops['HMMA']:.2f} per HMMA" if ops["HMMA"] else ""
+                    print(f"{label(name)}: loop {lo:#x}-{hi:#x}, {total} "
+                          f"instructions{per_mma} {dict(ops.most_common())}")
 
 
 def k1_bound_ms(n: int, S: int, d: int) -> tuple:
@@ -567,12 +583,56 @@ def hold_gather(torch, label, kernel, plain, Zb, idx, chunk=None) -> float:
     return err
 
 
+def gather_ids(torch, kind: str, nb: int, r: int, c: int, gen):
+    """Window-local ids (nb, 8, c / 8) int32 of one of ``GATHER_ID_KINDS``,
+    or uniform, for windows of r rows (r a multiple of 32); id k of window
+    b is laid out at row-major position k, and row k of a tile is k % 16."""
+    dev = gen.device
+    if kind == "uniform":
+        return torch.randint(0, r, (nb, 8, c // 8), generator=gen, device=dev, dtype=torch.int32)
+    i = torch.arange(c, device=dev)[None, :] + 7 * torch.arange(nb, device=dev)[:, None]
+    if kind == "one k-step":  # every id in window rows 0-15
+        ids = i % 16
+    elif kind == "every k-step":  # the 16 rows of a tile on 16 different k-steps
+        ids = (16 * i + i % 16) % r
+    elif kind == "k-step edges":
+        edges = torch.tensor([0, 15, 16, 31, 32, r - 17, r - 16, r - 1], device=dev)
+        ids = edges[i % 8]
+    elif kind == "one member":  # a tile's 16 rows: member 5 of one group
+        ids = (i // 16) % (r // 32) * 32 + 5
+    elif kind == "every member":  # 16 members of one group a tile, all across the window
+        ids = i % r
+    else:
+        raise ValueError(kind)
+    return ids.to(torch.int32).reshape(nb, 8, c // 8).contiguous()
+
+
+def gather_times(torch, kernels, Zb, idx) -> dict:
+    """Each gather's eager time (CUDA events over 20 calls), its device time
+    replayed from a CUDA graph, and the time of the one ``torch.gather``
+    that computes its function (the microbenchmark's ``library_args``):
+    ``GATHER_REPEATS`` repeats, the kernels and the three timings taken in
+    turns. Returns {variant: {timing: [ms, ...]}}."""
+    from torchdr_tpu_torch.benchmarks import gather_microbench as gm
+
+    runs = {name: {"eager": [], "graph": [], "library": []} for name, *_ in kernels}
+    library = {name: gm.library_args(name, Zb, idx) for name, *_ in kernels}
+    for _ in range(GATHER_REPEATS):
+        for name, kernel, _, _ in kernels:
+            fn = lambda: kernel(Zb, idx)  # noqa: E731
+            runs[name]["eager"].append(cuda_time_ms(fn, reps=20))
+            runs[name]["graph"].append(graph_ms(fn, calls=5, reps=4))
+            runs[name]["library"].append(
+                cuda_time_ms(lambda: torch.gather(*library[name]), reps=20))  # noqa: B023
+    return runs
+
+
 def check_gather(torch) -> dict:
     """G1-G3 against their plain versions on the card, at the small cases of
-    ``GATHER_CASES`` (ids at 0 and R - 1) and at the microbenchmark's full
-    shape, then their times there: the device time replayed from a CUDA
-    graph and the plain version's (the eager time is the microbenchmark's
-    ``kernel_ms``). Returns {variant: times}."""
+    ``GATHER_CASES`` (ids at 0 and R - 1), at ``GATHER_EDGE_CASES`` and at
+    the microbenchmark's full shape, then their times there
+    (:func:`gather_times`: medians with their spread) and the plain
+    version's. Returns {variant: times}."""
     from torchdr_tpu_torch.benchmarks import gather_microbench as gm
 
     dev = torch.device("cuda")
@@ -587,6 +647,13 @@ def check_gather(torch) -> dict:
             worst[name] = max(worst[name], hold_gather(torch, f"{name} D={d} R={r}", kernel,
                                                        plain, Zb, idx))
     print(f"gather small cases: {len(GATHER_CASES)} (D, R) x 3 kernels equal to plain", flush=True)
+    for kind, d, r, c in GATHER_EDGE_CASES:
+        Zb = torch.randn((16, r, d), generator=gen, device=dev)
+        idx = gather_ids(torch, kind, 16, r, c, gen)
+        for name, kernel, plain, _ in kernels:
+            worst[name] = max(worst[name], hold_gather(
+                torch, f"{name} {kind} D={d} R={r} c={c}", kernel, plain, Zb, idx))
+    print(f"gather edge cases: {len(GATHER_EDGE_CASES)} x 3 kernels equal to plain", flush=True)
 
     Zb, idx = gm.make_bucketed(gen, gm.N * gm.W, device=dev)
     nb, r, d = Zb.shape
@@ -594,13 +661,25 @@ def check_gather(torch) -> dict:
     times = {}
     for name, kernel, plain, _ in kernels:
         err = hold_gather(torch, f"{name} full shape", kernel, plain, Zb, idx, GATHER_CHUNK)
-        device_ms = graph_ms(lambda: kernel(Zb, idx), calls=5, reps=4)
-        plain_ms = cuda_time_ms(lambda: plain(Zb, idx), reps=3)
-        times[name] = {"device_ms": device_ms, "plain_ms": plain_ms,
+        times[name] = {"plain_ms": cuda_time_ms(lambda: plain(Zb, idx), reps=3),  # noqa: B023
                        "max_abs_err": max(worst[name], err)}
-        print(f"gather {name} nb={nb} R={r} D={d} c={c}: kernel {device_ms:.4f} ms replayed "
-              f"from a CUDA graph, plain {plain_ms:.4f} ms, "
-              f"max|kernel-plain|={times[name]['max_abs_err']}", flush=True)
+    for name, runs in gather_times(torch, kernels, Zb, idx).items():
+        t = times[name]
+        for timing, ms in runs.items():
+            t[f"{timing}_ms"] = float(np.median(ms))
+            t[f"{timing}_spread_ms"] = [min(ms), max(ms)]
+        gap = t["eager_ms"] - t["graph_ms"]
+        noise = max(t["eager_spread_ms"][1] - t["eager_spread_ms"][0],
+                    t["graph_spread_ms"][1] - t["graph_spread_ms"][0])
+        print(f"gather {name} nb={nb} R={r} D={d} c={c}: kernel {t['eager_ms']:.4f} ms eager "
+              f"[{t['eager_spread_ms'][0]:.4f}, {t['eager_spread_ms'][1]:.4f}], "
+              f"{t['graph_ms']:.4f} ms replayed from a CUDA graph "
+              f"[{t['graph_spread_ms'][0]:.4f}, {t['graph_spread_ms'][1]:.4f}] (medians of "
+              f"{GATHER_REPEATS}; eager - graph {gap:+.4f} ms, "
+              f"{'outside' if abs(gap) > noise else 'inside'} the spread {noise:.4f}), "
+              f"library {t['library_ms']:.4f} ms [{t['library_spread_ms'][0]:.4f}, "
+              f"{t['library_spread_ms'][1]:.4f}], plain {t['plain_ms']:.4f} ms, "
+              f"max|kernel-plain|={t['max_abs_err']}", flush=True)
     print("gather_times " + json.dumps(times), flush=True)
     return times
 
@@ -640,11 +719,11 @@ def run_gather_path(torch, counters, times) -> list:
             "replaces": f"benchmarks/_gather_microbench.py:{line}",
             "launches": launches[kernel.__name__],
             "max_abs_err": t["max_abs_err"],
-            "ms": rec["kernel_ms"],
+            "ms": t["eager_ms"],  # median of GATHER_REPEATS, as the library call's
             "plain_ms": t["plain_ms"],
             "bound_ms": rec["bound_ms"],  # from the rows this run's ids touch
             "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"],  # one torch.gather on the bucketed layout
+            "library_ms": t["library_ms"],  # one torch.gather on the bucketed layout
         })
     return records
 

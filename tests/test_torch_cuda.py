@@ -356,3 +356,80 @@ def test_gather_rejects_wide_rows_on_the_card(cuda, name):
     Zb = torch.zeros((1, 64, 9), device=cuda)
     with pytest.raises(ValueError, match="D <= 8"):
         GATHERS[name][0](Zb, torch.zeros((1, 8, 2), dtype=torch.int32, device=cuda))
+
+
+def _walk_ids(kind, nb, r, c, seed):
+    """Window-local ids (nb, 8, c / 8) int32 that drive the gathers' walks
+    to their edges. G2 visits only the k-steps (16 window rows) that a
+    16-row tile's ids hit; G3 only the column tiles that hold a row's
+    member of its group of 32. Row k of a tile is id k % 16 of its window."""
+    i = np.arange(c)[None, :] + 7 * np.arange(nb)[:, None]
+    if kind == "one k-step":  # every id in window rows 0-15
+        ids = i % 16
+    elif kind == "every k-step":  # a tile's 16 rows on 16 different k-steps
+        ids = (16 * i + i % 16) % r
+    elif kind == "k-step edges":
+        ids = np.array([0, 15, 16, 31, 32, r - 17, r - 16, r - 1])[i % 8]
+    elif kind == "one member":  # a tile's rows: member 5 of their group
+        ids = (i // 16) % (r // 32) * 32 + 5
+    elif kind == "every member":  # each member of each group, 16 a tile
+        ids = i % r
+    else:  # uniform
+        ids = np.random.default_rng(seed).integers(0, r, (nb, c))
+    return ids.astype(np.int32).reshape(nb, 8, c // 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [512, 1024, 2048])
+@pytest.mark.parametrize("d", [3, 8])
+@pytest.mark.parametrize(
+    "kind", ["one k-step", "every k-step", "k-step edges", "one member", "every member"])
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_walk_edge_cases(cuda, name, kind, d, r):
+    """Ids all inside one k-step, a tile's 16 rows on 16 k-steps, ids at the
+    k-steps' edges; for G3 every row of a tile in one member, and every
+    member hit. R = 1024 and 2048 give G3 two and four stage-1 k-steps
+    (grp = 32) and G2 32 or 128 k-steps, more than one 32-bit word."""
+    rng = np.random.default_rng(r + d)
+    Zb = torch.from_numpy(rng.normal(size=(6, r, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(_walk_ids(kind, 6, r, 1024, seed=r)).to(cuda)
+    _hold_gather(name, Zb, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c8", [1, 3, 5, 127])
+@pytest.mark.parametrize("r", [512, 2048])
+@pytest.mark.parametrize("name", ["take", "onehot", "2level"])
+def test_gather_ragged_c(cuda, name, r, c8):
+    """c = 8, 24, 40 and 1,016 ids: the last tile of a window is a part
+    tile, and with c = 8 a warp holds rows of no tile past c."""
+    Zb, idx = _gather_inputs(cuda, 5, r, 8, c8, seed=r + c8)
+    _hold_gather(name, Zb, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r, grp, d", [
+    (1024, 1, 8), (2048, 2, 8), (1024, 32, 8), (512, 512, 8), (512, 512, 3), (2048, 64, 1),
+])
+@pytest.mark.parametrize("kind", ["uniform", "every k-step", "k-step edges"])
+def test_2level_walks_past_one_word(cuda, r, grp, d, kind):
+    """G3 with more than 32 stage-1 k-steps (R / grp = 1024 groups: 64
+    k-steps), two k-steps (R = 1024, grp = 32), and more than 32 column
+    tiles (one group of 512 rows: 512 column tiles at D = 8)."""
+    rng = np.random.default_rng(grp + r)
+    Zb = torch.from_numpy(rng.normal(size=(3, r, d)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(_walk_ids(kind, 3, r, 512, seed=grp)).to(cuda)
+    _hold_gather("2level", Zb, idx, grp=grp)
+
+
+@pytest.mark.cuda
+def test_gather_windows_at_an_unaligned_address(cuda):
+    """A window tensor that starts 4 bytes past a 16-byte boundary: the
+    staging reads it by single floats instead of float4."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.normal(size=(1 + 2 * 64 * 8,)).astype(np.float32)).to(cuda)
+    Zb = base[1:].view(2, 64, 8)
+    assert Zb.is_contiguous() and Zb.data_ptr() % 16 == 4
+    idx = torch.from_numpy(_walk_ids("uniform", 2, 64, 64, seed=5)).to(cuda)
+    for name in ("take", "onehot", "2level"):
+        _hold_gather(name, Zb, idx)

@@ -98,6 +98,77 @@ def test_knn_graph_exact_matches_jax_in_float64(db_block):
     np.testing.assert_array_equal(got_i.numpy(), want_i)  # no near-ties in these data
 
 
+@pytest.mark.parametrize("db_block", [65_536, 256])
+def test_knn_graph_index_dtype_matches_jax(db_block):
+    """The indices are int32 in both packages, on both scan paths, and the
+    estimators that consume them still widen where torch needs int64."""
+    X = _clustered(300, 16, seed=4)
+    _, want_i = jax_knn_graph(jnp.asarray(X), k=7, mode="exact")
+    _, got_i = knn_graph(torch.from_numpy(X), k=7, mode="exact", db_block=db_block)
+    assert np.asarray(want_i).dtype == np.int32
+    assert got_i.dtype == torch.int32 and got_i.numpy().dtype == np.asarray(want_i).dtype
+    for r in range(X.shape[0]):
+        assert set(got_i[r].tolist()) == set(np.asarray(want_i)[r].tolist())
+
+
+@pytest.mark.parametrize("field, value", [
+    ("mode", "bogus"), ("precision", "fp8"), ("merge", "heap"), ("nomination", "random"),
+    ("storage", "int4"), ("storage", "bf16"),
+])
+def test_knn_config_refuses_what_jax_refuses(field, value):
+    from torchdr_tpu.ops import KnnConfig as JaxKnnConfig
+    from torchdr_tpu_torch import KnnConfig
+
+    with pytest.raises(ValueError) as want:
+        JaxKnnConfig(**{field: value})
+    with pytest.raises(ValueError) as got:
+        KnnConfig(**{field: value})
+    assert str(got.value) == str(want.value).replace("TorchDR-TPU", "TorchDR-Torch")
+
+
+@pytest.mark.parametrize("field, values", [
+    ("mode", ("exact", "approx", "ivf")),
+    ("precision", ("highest", "high", "default")),
+    ("merge", (None, "approx", "exact", "tournament")),
+    ("nomination", (None, "flat", "adjacency", "supers")),
+    ("storage", ("auto", "f32", "split", "int8")),
+])
+def test_knn_config_accepts_what_jax_accepts(field, values):
+    from torchdr_tpu.ops import KnnConfig as JaxKnnConfig
+    from torchdr_tpu_torch import KnnConfig
+
+    for value in values:
+        want = JaxKnnConfig(**{field: value})
+        got = KnnConfig(**{field: value})
+        assert got.kwargs() == want.kwargs()
+
+
+@pytest.mark.parametrize("preset", ["EXACT", "FAST", "IVF"])
+def test_knn_config_presets_match_jax(preset):
+    import dataclasses
+
+    import torchdr_tpu.ops as jax_ops
+    import torchdr_tpu_torch
+    import torchdr_tpu_torch.ops as ops
+
+    want = getattr(jax_ops, preset)
+    got = getattr(torchdr_tpu_torch, preset)
+    assert got is getattr(ops, preset)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.kwargs() == want.kwargs()
+    assert sorted(got.kwargs()) == ["block_size", "mode", "precision", "recall_target"]
+
+
+def test_knn_config_fields_match_jax():
+    import dataclasses
+
+    from torchdr_tpu.ops import KnnConfig as JaxKnnConfig
+    from torchdr_tpu_torch import KnnConfig
+
+    want = [(f.name, f.default) for f in dataclasses.fields(JaxKnnConfig)]
+    assert [(f.name, f.default) for f in dataclasses.fields(KnnConfig)] == want
+
+
 def test_knn_graph_approx_maps_to_exact():
     X = _clustered(400, 16, seed=3)
     Xt = torch.from_numpy(X)

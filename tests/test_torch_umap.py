@@ -424,6 +424,41 @@ def test_bands_schedule_is_not_ported_yet():
         UMAP(n_neighbors=10, max_iter=5, device="cpu", edge_schedule="bands").fit_transform(X)
 
 
+@pytest.mark.parametrize("sched, groups", [
+    ("exact", 4), ("exact", 1), ("groups", 4), ("exact", "auto"), ("auto", 3),
+])
+def test_edge_groups_warning_matches_jax(sched, groups):
+    """``edge_groups`` set with a schedule other than ``groups`` warns, as
+    the JAX package warns, with its text; otherwise nothing is said."""
+    import warnings
+
+    n = 1000
+    with warnings.catch_warnings(record=True) as want:
+        warnings.simplefilter("always")
+        want_sched = JaxUMAP(edge_groups=groups, edge_schedule=sched)._edge_schedule_for(n)
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        model = UMAP(edge_groups=groups, edge_schedule=sched, device="cpu")
+        got_sched = model._edge_schedule_for(n)
+    assert got_sched == want_sched
+    want = [(w.category, str(w.message)) for w in want if "edge_groups" in str(w.message)]
+    got = [(w.category, str(w.message).replace("TorchDR-Torch", "TorchDR-TPU")) for w in got]
+    assert got == want
+    assert bool(got) == (sched == "exact" and groups != "auto")
+
+
+def test_edge_groups_warning_with_the_exact_schedule():
+    with pytest.warns(UserWarning, match=r"\[TorchDR-Torch\] edge_groups=4 is ignored"):
+        model = UMAP(edge_groups=4, edge_schedule="exact", device="cpu")
+        assert model._edge_schedule_for(10) == "exact"
+
+
+def test_edge_groups_warning_comes_before_bands_is_refused():
+    with pytest.warns(UserWarning, match="ignored with edge_schedule='bands'"):
+        with pytest.raises(NotImplementedError, match="bands"):
+            UMAP(edge_groups=2, edge_schedule="bands", device="cpu")._edge_schedule_for(10)
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -23,6 +23,7 @@ from .affinity import EntropicAffinity, UMAPAffinity  # noqa: E402
 from .models.neighbor import SNE, TSNE, UMAP  # noqa: E402
 from .models.spectral import PCA  # noqa: E402
 from .ops.distance import knn_graph, pairwise_distances  # noqa: E402
+from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
 
 __all__ = [
     "SNE",
@@ -33,4 +34,8 @@ __all__ = [
     "PCA",
     "knn_graph",
     "pairwise_distances",
+    "KnnConfig",
+    "EXACT",
+    "FAST",
+    "IVF",
 ]

@@ -14,6 +14,7 @@ for a later slice.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -183,15 +184,23 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         """``edge_schedule="auto"``: "groups" when G > 1, else "exact"."""
         if self.edge_schedule == "auto":
             return "groups" if self._edge_groups_for(n) > 1 else "exact"
+        if self.edge_schedule not in ("bands", "groups", "exact"):
+            raise ValueError(
+                f"[TorchDR-Torch] ERROR : unknown edge_schedule "
+                f"'{self.edge_schedule}' (groups | exact | auto)."
+            )
+        if self.edge_schedule != "groups" and self.edge_groups != "auto":
+            warnings.warn(
+                f"[TorchDR-Torch] edge_groups={self.edge_groups!r} is ignored "
+                f"with edge_schedule='{self.edge_schedule}' (groups only "
+                f"apply to the 'groups' schedule).",
+                UserWarning,
+                stacklevel=2,
+            )
         if self.edge_schedule == "bands":
             raise NotImplementedError(
                 "[TorchDR-Torch] ERROR : edge_schedule='bands' is not ported yet "
                 "(use 'groups' or 'exact')."
-            )
-        if self.edge_schedule not in ("groups", "exact"):
-            raise ValueError(
-                f"[TorchDR-Torch] ERROR : unknown edge_schedule "
-                f"'{self.edge_schedule}' (groups | exact | auto)."
             )
         return self.edge_schedule
 

@@ -11,8 +11,8 @@ row-major), and gathers row idx[b, k] of window b:
   window with float32 sums, and so returns them rounded to bf16, as float32
   (nb, c, D);
 - :func:`bucket_2level` (``grp`` rows a group, R % grp == 0) brings each
-  row's group down by a one-hot bf16 product and selects the row within it
-  by float32 one-hot products: the same result as G2.
+  row's group down by a one-hot bf16 product and selects the row within
+  it: the same result as G2.
 
 Every output element is one nonzero term, so kernel and plain version agree
 bit for bit. The CUDA source is ``ops/csrc/bucket_gather.cu``; its note gives

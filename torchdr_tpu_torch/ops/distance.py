@@ -101,7 +101,9 @@ def knn_graph(
     ``mode="approx"`` is the JAX package's ``lax.approx_min_k`` tier, which
     has no torch counterpart: the port maps it to the exact tier (100%
     recall). ``precision`` and ``recall_target`` are accepted for parity and
-    unused. Returns ``(dists, indices)`` of shape ``(n, k)``, ascending.
+    unused. Returns ``(dists, indices)`` of shape ``(n, k)``, ascending;
+    the indices are int32, as the JAX package returns them (callers widen
+    them where torch needs int64).
     """
     check_metric(metric)
     if mode not in ("exact", "approx"):
@@ -113,7 +115,7 @@ def knn_graph(
     mask_self = exclude_diag and self_mode
 
     dists = torch.empty((n, k), dtype=X.dtype, device=X.device)
-    indices = torch.empty((n, k), dtype=torch.int64, device=X.device)
+    indices = torch.empty((n, k), dtype=torch.int32, device=X.device)
     for r0 in range(0, n, block):
         Xb = X[r0 : r0 + block]
         if m <= db_block:

@@ -45,3 +45,26 @@ class KnnConfig:
             raise ValueError(f"[TorchDR-Torch] unknown knn mode {self.mode!r}")
         if self.precision not in ("highest", "high", "default"):
             raise ValueError(f"[TorchDR-Torch] unknown knn precision {self.precision!r}")
+        if self.merge not in (None, "approx", "exact", "tournament"):
+            raise ValueError(f"[TorchDR-Torch] unknown ivf merge {self.merge!r}")
+        if self.nomination not in (None, "flat", "adjacency", "supers"):
+            raise ValueError(f"[TorchDR-Torch] unknown ivf nomination {self.nomination!r}")
+        if self.storage not in ("auto", "f32", "split", "int8"):
+            raise ValueError(f"[TorchDR-Torch] unknown ivf storage {self.storage!r}")
+
+    def kwargs(self) -> dict:
+        """The arguments of ``knn_graph`` that this configuration sets."""
+        return dict(
+            mode=self.mode,
+            precision=self.precision,
+            recall_target=self.recall_target,
+            block_size=self.block_size,
+        )
+
+
+#: Preset: exact tier (the default everywhere).
+EXACT = KnnConfig()
+#: Preset: the JAX package's fast tier; the port runs it exactly.
+FAST = KnnConfig(mode="approx", precision="high", recall_target=0.95)
+#: Preset: the IVF tier (not ported yet).
+IVF = KnnConfig(mode="ivf", precision="high")
