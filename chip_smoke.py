@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero:
    ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
    10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
    10-NN label accuracy of the embedding;
-5. gather: the bucketed gathers G1-G3 against their plain versions bit for
+5. IVF: ``ivf_build`` and a second, synchronised ``ivf_knn`` on 1,300,000 x 50
+   float32 clustered rows (``benchmarks.ivf_recall.make_clustered``: 50
+   Gaussian clusters, component j scaled by 1/(j + 1), seed 0), timed, with
+   the knobs the defaults resolve to; recall@30 of that graph on 2,000 rows
+   against the exact ``knn_graph`` (fails below 0.95); then
+   ``UMAP(random_state=0, knn_mode=IVF)`` on the same rows, as in phase 4;
+6. gather: the bucketed gathers G1-G3 against their plain versions bit for
    bit, at small windows, at edge cases of their walks over k-steps and
    members, and at the attraction-gather microbenchmark's full shape (20,312
    windows of 512 rows, 1,024 ids each, D = 8), with their eager times,
@@ -26,18 +32,19 @@ Phases, in order; any failure exits non-zero:
    repeats, with their spread); then that microbenchmark
    (``torchdr_tpu_torch.benchmarks.gather_microbench.main``) with every
    launch counter set to 0 just before and read just after;
-6. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+7. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-7. with ``--profile`` only: device time by kernel and the device's idle
+8. with ``--profile`` only: device time by kernel and the device's idle
    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
    (torch.profiler).
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
 kernel in one call. With ``--gather`` it builds the gathers alone and runs
-phase 5 only (with ``--sass``, their report). Either prints no result line.
+phase 6 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
+runs phase 5 alone. Each of these prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -59,9 +66,21 @@ N, D_IN, N_CLUSTERS, SEED = 60_000, 784, 50, 0
 N_TSNE = 10_000  # the exact t-SNE/SNE paths' size
 N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
 # K1 is timed at (n, S, d): the UMAP path's shape, the same in 3-D, a size
-# where the device and not the host bounds a step, and the sample of 2048 that
-# the estimator draws at small n
-K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2048, 2))
+# where the device and not the host bounds a step, the sample of 2048 that
+# the estimator draws at small n, and the IVF path's shape
+K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2048, 2),
+             (1_300_000, 512, 2))
+# The IVF path: BASELINE.json's "UMAP on 1.3M-cell scRNA-seq" at its 50
+# principal components, on clustered rows whose component j is scaled by
+# 1/(j + 1). That spectrum is an assumption, not taken from published
+# single-cell data: of the decays tried (0, 0.5, 1) it is the smallest at
+# which recall@30 clears IVF_RECALL_MIN. Isotropic 50-D noise is the worst
+# case of any IVF index: at nprobe 16 of the ~91 cells of a cluster,
+# recall@30 is 0.34 with either nomination (PERF.md section 5). The recall
+# is that of the port's adjacency nomination (every cell a query block
+# touches, ops/ivf.py), not of the JAX package's.
+N_IVF, D_IVF, IVF_DECAY, IVF_K, IVF_NPROBE = 1_300_000, 50, 1.0, 30, 16
+IVF_EVAL_ROWS, IVF_RECALL_MIN = 2_000, 0.95
 K1_SFU_CALLS = 2.5  # per pair, as K1 is built: lg2, ex2, and one reciprocal for two pairs
 S_MAIN = 512  # shared negatives of the UMAP path at n = 60k
 # K1 is held to a float64 evaluation of its function (the plain version on
@@ -728,12 +747,55 @@ def run_gather_path(torch, counters, times) -> list:
     return records
 
 
-def make_data(n: int):
-    """n x 784 float32 rows around 50 Gaussian cluster centres, seed 0."""
-    rng = np.random.default_rng(SEED)
-    centers = rng.normal(scale=4.0, size=(N_CLUSTERS, D_IN)).astype(np.float32)
-    labels = rng.integers(0, N_CLUSTERS, n)
-    return centers[labels] + rng.standard_normal((n, D_IN), dtype=np.float32), labels
+def run_ivf_path(torch, counters) -> dict:
+    """Phase 5: the IVF index built and searched at 1.3M x 50 with the
+    estimators' settings (k = 30, nprobe 16, ``rerank=False``), its recall
+    held to the exact graph, then the UMAP fit on the IVF graph."""
+    from torchdr_tpu_torch import IVF, UMAP
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered, recall
+    from torchdr_tpu_torch.ops.distance import knn_graph
+    from torchdr_tpu_torch.ops.ivf import _resolve_search_knobs, ivf_build, ivf_knn
+
+    X, labels = make_clustered(N_IVF, D_IVF, N_CLUSTERS, IVF_DECAY, seed=SEED)
+    Xt = torch.from_numpy(X).cuda()
+    Xt -= Xt.mean(0, keepdim=True)  # as the affinity layer centres its input
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index = ivf_build(Xt)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    search = dict(k=IVF_K, nprobe=IVF_NPROBE, index=index, rerank=False)
+    ivf_knn(None, **search)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, I = ivf_knn(None, **search)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nprobe, budget, m, merge, max_ch, _, _, nomination = _resolve_search_knobs(
+        index, IVF_K, IVF_NPROBE, None, None, None, "xla", rerank=False)
+    g = torch.Generator()
+    g.manual_seed(SEED)
+    rows = torch.randperm(N_IVF, generator=g)[:IVF_EVAL_ROWS].cuda()
+    _, exact = knn_graph(Xt[rows], Xt, k=IVF_K + 1, exclude_diag=False)
+    rec = float(recall(I[rows], exact[:, 1:]).mean())  # exact[:, 0] is the row itself
+    ivf = {
+        "n": N_IVF, "d": D_IVF, "build_s": build_s, "search_s": search_s, "peak_mem_gb": peak_gb,
+        "nlist": int(index.centroids.shape[0]), "supers": int(index.super_centroids.shape[0]),
+        "chunk": index.chunk, "nprobe": nprobe, "budget": budget, "m": m, "merge": merge,
+        "max_ch": max_ch, "nomination": nomination, "adjacency_P": int(index.cell_adj.shape[1]),
+        "storage_gb": index.X_sorted.numel() * 4 / 1e9, "recall_at_30": rec,
+        "recall_rows": IVF_EVAL_ROWS,
+    }
+    print("ivf " + json.dumps(ivf), flush=True)
+    if not rec >= IVF_RECALL_MIN:
+        raise AssertionError(f"IVF: recall@{IVF_K} {rec} < {IVF_RECALL_MIN}")
+    del Xt, index, I, exact
+    torch.cuda.empty_cache()
+    ivf["fit"] = run_fit(torch, UMAP(random_state=0, knn_mode=IVF, device="auto"), X, labels,
+                         counters, expect=("fused_shared_repulsion",))
+    return ivf
 
 
 def run_fit(torch, model, X, labels, counters, expect) -> dict:
@@ -862,9 +924,10 @@ def main() -> int:
     # 2. build
     k1_only = "--k1" in sys.argv[1:]
     gather_only = "--gather" in sys.argv[1:]
+    ivf_only = "--ivf" in sys.argv[1:]
     t0 = time.perf_counter()
-    if k1_only or gather_only:
-        libs = build_libraries(["umap_repulsion"] if k1_only else ["bucket_gather"])
+    if k1_only or gather_only or ivf_only:
+        libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
         libs = build_libraries()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -872,6 +935,10 @@ def main() -> int:
         sass_report(libs)
     if gather_only:
         run_gather_path(torch, counters, check_gather(torch))
+        print(smi, flush=True)
+        return 0
+    if ivf_only:
+        run_ivf_path(torch, counters)
         print(smi, flush=True)
         return 0
 
@@ -885,11 +952,13 @@ def main() -> int:
     k2, k3 = check_k2_k3(torch, gen)
 
     # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784
-    X, labels = make_data(N)
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+
+    X, labels = make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
     umap = run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
                    expect=("fused_shared_repulsion",))
     k1["launches"] = umap["launches"]["fused_shared_repulsion"]
-    X10, labels10 = make_data(N_TSNE)
+    X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
     tsne = run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10, counters,
                    expect=("rowlse_fwd", "rowlse_bwd"))
     k2["launches"] = tsne["launches"]["rowlse_fwd"]
@@ -901,7 +970,10 @@ def main() -> int:
     run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
             counters, expect=("rowlse_fwd", "rowlse_bwd"))
 
-    # 5. the gathers and the attraction-gather microbenchmark
+    # 5. the IVF kNN tier and UMAP on its graph at 1.3M x 50
+    run_ivf_path(torch, counters)
+
+    # 6. the gathers and the attraction-gather microbenchmark
     gathers = run_gather_path(torch, counters, check_gather(torch))
 
     if "--profile" in sys.argv[1:]:

@@ -433,3 +433,171 @@ def test_gather_windows_at_an_unaligned_address(cuda):
     idx = torch.from_numpy(_walk_ids("uniform", 2, 64, 64, seed=5)).to(cuda)
     for name in ("take", "onehot", "2level"):
         _hold_gather(name, Zb, idx)
+
+
+def _ivf_data(n, d, n_clusters, seed, scale=2.0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=scale, size=(n_clusters, d))
+    X = centers[rng.integers(0, n_clusters, n)] + rng.normal(size=(n, d))
+    return (X - X.mean(0)).astype(np.float32)
+
+
+def _tight_ivf_data(groups, per_group, per_cluster, d, seed):
+    """Tight clusters in well-separated groups: no row near a cell boundary,
+    so float32 k-means steps agree between devices (the card sums the
+    centroids by atomic adds in no fixed order). The clusters of a group sit
+    at distinct radii from its centre, 0.25 apart: the supers' relabel sorts
+    cells by that distance, which float32 rounds at ~1e-3 here."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(scale=20.0, size=(groups, d))
+    u = rng.normal(size=(groups * per_group, d))
+    radii = 1.0 + 0.25 * np.tile(np.arange(per_group), groups)
+    c = np.repeat(g, per_group, 0) + (radii / np.linalg.norm(u, axis=1))[:, None] * u
+    X = np.repeat(c, per_cluster, 0) + rng.normal(scale=0.05, size=(len(c) * per_cluster, d))
+    return X.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clusters, kw", [(300, dict(chunk=64)), (2048, dict(kmeans_iters=5))])
+def test_ivf_build_on_the_card_equals_the_cpu(cuda, n_clusters, kw, record_property):
+    """The same index on the card as on the CPU from the same generator
+    seed and the same k-means seedings: layout equal, X_sorted bit for bit,
+    centroids within 1e-5 absolute plus 1e-5 relative (the card adds a
+    cluster's coordinates by atomic adds in no fixed order: a few float32
+    rounding steps of the sum, relative to the coordinate). The largest
+    centroid gap, the largest coordinate and the largest share of the bound
+    taken go to the JUnit report (``--junitxml``)."""
+    from torchdr_tpu_torch.ops.ivf import IVFIndex, ivf_build
+
+    X = (_tight_ivf_data(10, 30, 20, 12, 0) if n_clusters == 300
+         else _tight_ivf_data(32, 64, 8, 8, 1))
+    # one row of each cluster (rows are sorted by cluster) seeds the cells,
+    # and the group means the 32 supers of the 2048 cells
+    init = torch.from_numpy(X[:: X.shape[0] // n_clusters][:n_clusters].copy())
+    sup = torch.from_numpy(X.reshape(32, -1, X.shape[1]).mean(1)) if n_clusters == 2048 else None
+    idx = {}
+    for dev in ("cpu", cuda):
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        idx[str(dev)] = ivf_build(torch.from_numpy(X).to(dev), n_clusters=n_clusters, generator=g,
+                                  init_centers=init.to(dev),
+                                  super_init=None if sup is None else sup.to(dev), **kw)
+    cpu, card = idx["cpu"], idx[str(cuda)]
+    assert card.X_sorted.is_cuda and card.cell_adj.is_cuda
+    for name in IVFIndex._fields:
+        a, b = getattr(cpu, name), getattr(card, name)
+        if not isinstance(a, torch.Tensor):
+            assert a == b, name
+        elif name in ("centroids", "super_centroids"):
+            gap = (a - b.cpu()).abs()
+            record_property(f"{name}_max_abs_gap", float(gap.max()))
+            record_property(f"{name}_max_abs", float(a.abs().max()))
+            record_property(f"{name}_share_of_bound", float((gap / (1e-5 + 1e-5 * a.abs())).max()))
+            assert torch.allclose(a, b.cpu(), atol=1e-5, rtol=1e-5), name
+        elif name != "cell_adj":  # its order of equidistant cells may differ
+            assert torch.equal(a, b.cpu()), name
+    assert torch.equal(torch.sort(cpu.cell_adj, 1).values, torch.sort(card.cell_adj.cpu(), 1).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(), dict(rerank=False, nomination="adjacency"), dict(merge="tournament", block=48),
+    dict(merge="exact", budget_order="rank", budget=6), dict(seg_rows=1000),
+])
+def test_ivf_search_on_the_card_equals_the_cpu(cuda, kw):
+    """One CPU-built index searched on the CPU and, moved over, on the
+    card: the same ids up to ties, distances within 1e-5 absolute plus 1e-5
+    relative (of |q|² + |x|² for the scan scores of ``rerank=False``)."""
+    from torchdr_tpu_torch.ops.ivf import index_from_numpy, ivf_build, ivf_knn, ivf_knn_queries
+
+    X = _ivf_data(6000, 12, 30, seed=0)
+    cpu = ivf_build(torch.from_numpy(X), n_clusters=300, kmeans_iters=8, chunk=64)
+    card = index_from_numpy({k: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                             for k, v in cpu._asdict().items()}, cuda)
+    for search in (lambda i: ivf_knn(None, index=i, k=10, nprobe=8, **kw),
+                   lambda i: ivf_knn_queries(torch.from_numpy(X[::5] + 0.01).to(i.X_sorted.device),
+                                             i, k=10, nprobe=8, **kw)):
+        wd, wi = search(cpu)
+        gd, gi = search(card)
+        assert gi.is_cuda and gi.dtype == torch.int32
+        gd, gi = gd.cpu().double().numpy(), gi.cpu().numpy()
+        wd, wi = wd.double().numpy(), wi.numpy()
+        norms = (X.astype(np.float64) ** 2).sum(1)
+        scale = np.abs(wd) if kw.get("rerank", True) else np.abs(wd) + 2 * norms.max()
+        assert np.all(np.abs(gd - wd) <= 1e-5 + 1e-5 * scale)
+        for r, j in zip(*np.nonzero(gi != wi)):
+            tie = np.abs(wd[r] - wd[r, j]) <= 2e-5 * np.maximum(1.0, scale[r, j])
+            assert j == wi.shape[1] - 1 or tie.sum() > 1, (r, j)
+        assert (gi != wi).mean() < 1e-3
+
+
+@pytest.mark.cuda
+def test_ivf_affinity_on_a_cuda_tensor_stays_on_the_card(cuda, monkeypatch):
+    """``knn_mode="ivf"`` on a CUDA tensor: the index is built and searched
+    on the card; neither the host-segmented assignment nor a host permute
+    runs."""
+    from torchdr_tpu_torch import IVF, UMAPAffinity
+    from torchdr_tpu_torch.ops import ivf as tivf
+
+    def host_path(*a, **k):
+        raise AssertionError("the host-segmented assignment ran")
+
+    devices = []
+    index_copy = torch.Tensor.index_copy_
+
+    def spy(self, *a, **k):
+        devices.append(self.device.type)
+        return index_copy(self, *a, **k)
+
+    monkeypatch.setattr(tivf, "_assign_host_segmented", host_path)
+    monkeypatch.setattr(torch.Tensor, "index_copy_", spy)
+    X = torch.from_numpy(_ivf_data(5000, 16, 20, seed=3)).to(cuda)
+    P, NN = UMAPAffinity(n_neighbors=15, knn_mode=IVF, device="auto")(X, return_indices=True)
+    assert P.is_cuda and NN.is_cuda and bool(torch.isfinite(P).all())
+    assert devices and set(devices) == {"cuda"}
+
+
+@pytest.mark.cuda
+def test_ivf_build_on_a_cuda_tensor_never_permutes_on_the_host(cuda, monkeypatch):
+    """With the card's memory budget forced to nothing, a CUDA tensor is
+    still assigned and permuted on the card (or the card raises): the host
+    permute is for numpy input only. The index equals the one built with
+    the true budget (centroids within 1e-5 absolute plus 1e-5 relative: the
+    card's k-means sums are atomic adds in no fixed order; ``cell_adj`` up
+    to the order of equidistant cells, as the card-against-CPU test)."""
+    from torchdr_tpu_torch.ops import ivf as tivf
+
+    X = torch.from_numpy(_tight_ivf_data(10, 30, 20, 12, 0)).to(cuda)
+    init = X[:: X.shape[0] // 300][:300].clone()
+
+    def build():
+        g = torch.Generator(device=cuda)
+        g.manual_seed(0)
+        return tivf.ivf_build(X, n_clusters=300, generator=g, init_centers=init, chunk=64)
+
+    want = build()
+    devices = []
+    index_copy = torch.Tensor.index_copy_
+
+    def spy(self, *a, **k):
+        devices.append(self.device.type)
+        return index_copy(self, *a, **k)
+
+    def host_path(*a, **k):
+        raise AssertionError("the host-segmented assignment ran")
+
+    monkeypatch.setattr(tivf, "_permute_hbm_budget", lambda device: 0)
+    monkeypatch.setattr(tivf, "_assign_host_segmented", host_path)
+    monkeypatch.setattr(torch.Tensor, "index_copy_", spy)
+    got = build()
+    assert devices == ["cuda"]
+    for name in tivf.IVFIndex._fields:
+        a, b = getattr(want, name), getattr(got, name)
+        if not isinstance(a, torch.Tensor):
+            assert a == b, name
+        elif name in ("centroids", "super_centroids"):
+            assert b.is_cuda and torch.allclose(a, b, atol=1e-5, rtol=1e-5), name
+        elif name == "cell_adj":
+            assert b.is_cuda and torch.equal(torch.sort(a, 1).values, torch.sort(b, 1).values)
+        else:
+            assert b.is_cuda and torch.equal(a, b), name

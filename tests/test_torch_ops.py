@@ -305,3 +305,61 @@ def test_svd_flip_matches_jax(u_based):
     gu, gv = svd_flip(torch.from_numpy(u), torch.from_numpy(v), u_based_decision=u_based)
     np.testing.assert_array_equal(gu.numpy(), np.asarray(wu))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+
+
+def test_topk_index_dtypes_match_jax():
+    """``pairwise_distances(k=...)``, ``kmin`` and ``kmax`` return int32
+    indices, as ``lax.top_k`` does in the JAX package."""
+    from torchdr_tpu.ops.distance import pairwise_distances as jax_pairwise_distances
+    from torchdr_tpu.ops.reductions import kmax as jax_kmax
+    from torchdr_tpu.ops.reductions import kmin as jax_kmin
+    from torchdr_tpu_torch.ops.distance import pairwise_distances
+    from torchdr_tpu_torch.ops.reductions import kmax, kmin
+
+    X = np.random.default_rng(11).normal(size=(50, 6)).astype(np.float32)
+    pairs = [
+        (pairwise_distances(torch.from_numpy(X), k=4, exclude_diag=True)[1],
+         jax_pairwise_distances(jnp.asarray(X), k=4, exclude_diag=True)[1]),
+        (kmin(torch.from_numpy(X), 3, dim=0)[1], jax_kmin(jnp.asarray(X), 3, dim=0)[1]),
+        (kmax(torch.from_numpy(X), 3, dim=1)[1], jax_kmax(jnp.asarray(X), 3, dim=1)[1]),
+    ]
+    for got, want in pairs:
+        assert np.asarray(want).dtype == np.int32
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n, query_chunk, cross", [
+    (900, 256, False), (900, 300, False), (500, 128, True), (700, 1000, False),
+])
+def test_knn_graph_host_chunked_is_knn_graph(n, query_chunk, cross):
+    """Bit for bit the port's ``knn_graph``: the same products row by row,
+    and each row's own id moved out by a stable reorder of k + 1."""
+    from torchdr_tpu_torch.ops.distance import knn_graph_host_chunked
+
+    rng = np.random.default_rng(n)
+    X = torch.from_numpy(rng.normal(size=(n, 12)).astype(np.float32))
+    Y = torch.from_numpy(rng.normal(size=(300, 12)).astype(np.float32)) if cross else None
+    kw = dict(exclude_diag=False) if cross else {}
+    d1, i1 = knn_graph(X, Y, k=7, **kw)
+    d2, i2 = knn_graph_host_chunked(X, Y, k=7, query_chunk=query_chunk)
+    assert i2.dtype == torch.int32
+    assert torch.equal(d1, d2) and torch.equal(i1, i2)
+
+
+def test_knn_graph_host_chunked_matches_jax():
+    """The JAX package's own cases (``tests/test_ops.py``, host-chunked
+    exact kNN), index for index."""
+    from torchdr_tpu.ops.distance import knn_graph_host_chunked as jax_chunked
+    from torchdr_tpu_torch.ops.distance import knn_graph_host_chunked
+
+    X = np.array(jax.random.normal(jax.random.PRNGKey(0), (900, 12)))
+    want = jax_chunked(jnp.asarray(X), k=7, query_chunk=256)
+    got = knn_graph_host_chunked(torch.from_numpy(X), k=7, query_chunk=256)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    Xc = np.array(jax.random.normal(jax.random.PRNGKey(1), (500, 8)))
+    Yc = np.array(jax.random.normal(jax.random.PRNGKey(2), (300, 8)))
+    want = jax_chunked(jnp.asarray(Xc), jnp.asarray(Yc), k=5, query_chunk=128)
+    got = knn_graph_host_chunked(torch.from_numpy(Xc), torch.from_numpy(Yc), k=5, query_chunk=128)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))

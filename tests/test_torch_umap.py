@@ -402,6 +402,47 @@ def test_small_fit_silhouette_close_to_jax():
     assert abs(s_port - s_jax) <= 0.1
 
 
+def test_umap_affinity_ivf_matches_jax():
+    """``knn_mode=KnnConfig(mode="ivf")`` in both packages, at 16 cells with
+    nprobe 16: every cell is probed, so both IVF graphs are the exact graph
+    and the affinities agree as the exact tier's do (data and tolerance of
+    ``test_umap_affinity_matches_jax``, 2e-5); so does the port's IVF
+    affinity with its exact one (3.9e-6 apart when this test held them at
+    1e-6: the IVF distances are the scan scores |x|² − 2q·x + |q|², the
+    exact ones a gram of centred rows)."""
+    from torchdr_tpu.ops.knn_config import KnnConfig as JaxKnnConfig
+    from torchdr_tpu_torch import KnnConfig
+
+    X = np.random.default_rng(10).normal(size=(600, 16)).astype(np.float32)
+    kw = dict(mode="ivf", n_clusters=16, nprobe=16)
+    jP, jNN = JaxUMAPAffinity(n_neighbors=15, knn_mode=JaxKnnConfig(**kw))(
+        jnp.asarray(X), return_indices=True)
+    aff = UMAPAffinity(n_neighbors=15, knn_mode=KnnConfig(**kw), device="cpu")
+    tP, tNN = aff(X, return_indices=True)
+    assert "knn" in aff.timings_
+    want = np.asarray(jax_sparse_to_dense(jP, jNN, X.shape[0]))
+    got = sparse_to_dense(tP, tNN, X.shape[0]).numpy()
+    assert np.array_equal(got > 0, want > 0)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
+    eP, eNN = UMAPAffinity(n_neighbors=15, device="cpu")(X, return_indices=True)
+    exact = sparse_to_dense(eP, eNN, X.shape[0]).numpy()
+    assert np.array_equal(got > 0, exact > 0)
+    np.testing.assert_allclose(got, exact, atol=2e-5, rtol=0)
+
+
+def test_small_fit_on_the_ivf_graph():
+    """UMAP with the IVF preset on the CPU: 10-NN label accuracy >= 0.9."""
+    from torchdr_tpu.eval import knn_label_accuracy
+    from torchdr_tpu_torch import IVF
+
+    X, y = _blobs(n=1000, seed=7)
+    model = UMAP(n_neighbors=15, max_iter=200, random_state=0, knn_mode=IVF, device="cpu")
+    Z = model.fit_transform(X)
+    assert Z.shape == (1000, 2) and np.all(np.isfinite(Z))
+    assert model.timings_["knn"] > 0
+    assert float(knn_label_accuracy(Z, y, k=10)) >= 0.9
+
+
 def test_fit_counts_steps_and_times_phases():
     X, _ = _blobs(n=200, seed=6)
     model = UMAP(n_neighbors=10, max_iter=30, random_state=0, device="cpu")
@@ -472,6 +513,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "torchdr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert ROOT / "torchdr_tpu_torch" / "benchmarks" / "gather_microbench.py" in files
+    for new in ("ops/ivf.py", "ops/kmeans.py", "benchmarks/ivf_recall.py"):
+        assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:
         for mod in _imported_modules(path):

@@ -22,7 +22,9 @@ torch.backends.cudnn.allow_tf32 = False
 from .affinity import EntropicAffinity, UMAPAffinity  # noqa: E402
 from .models.neighbor import SNE, TSNE, UMAP  # noqa: E402
 from .models.spectral import PCA  # noqa: E402
-from .ops.distance import knn_graph, pairwise_distances  # noqa: E402
+from .ops.distance import knn_graph, knn_graph_host_chunked, pairwise_distances  # noqa: E402
+from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
+from .ops.kmeans import kmeans_fit  # noqa: E402
 from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
 
 __all__ = [
@@ -33,7 +35,12 @@ __all__ = [
     "UMAPAffinity",
     "PCA",
     "knn_graph",
+    "knn_graph_host_chunked",
     "pairwise_distances",
+    "ivf_build",
+    "ivf_knn",
+    "ivf_knn_queries",
+    "kmeans_fit",
     "KnnConfig",
     "EXACT",
     "FAST",

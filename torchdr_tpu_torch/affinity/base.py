@@ -6,8 +6,9 @@
 - :class:`SparseLogAffinity` — sparse, computed in log domain.
 
 ``zero_diag`` excludes the self-distance by masking it to ``MASK_VALUE``.
-The device-mesh build, the IVF tier and the sharded kNN wait for later
-slices.
+``knn_mode="ivf"`` (or a :class:`KnnConfig` with mode "ivf") builds the
+kNN graph through ``ops/ivf.ivf_knn``. The device-mesh build and the
+sharded kNN wait for later slices.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..base import BaseEstimator, resolve_device
 from ..ops.distance import knn_graph, pairwise_distances
+from ..ops.ivf import ivf_knn
 from ..ops.knn_config import KnnConfig
 from ..utils.logger import get_logger, log_phase
 from ..utils.wrappers import to_torch
@@ -80,9 +82,21 @@ class Affinity(BaseEstimator, ABC):
             C, _ = pairwise_distances(X, metric=self.metric, exclude_diag=self.zero_diag)
             return (C, None) if return_indices else C
         if self.knn_mode == "ivf":
-            raise NotImplementedError(
-                "[TorchDR-Torch] ERROR : the IVF kNN tier is not ported yet."
+            if self.metric not in ("sqeuclidean", "euclidean"):
+                raise ValueError("[TorchDR-Torch] ERROR : IVF tier supports (sq)euclidean only.")
+            cfg = self._knn_cfg
+            ivf_kwargs = dict(
+                k=k, nprobe=cfg.nprobe, n_clusters=cfg.n_clusters,
+                exclude_self=self.zero_diag, budget=cfg.budget, merge=cfg.merge,
+                nomination=cfg.nomination, rerank=cfg.rerank, m=cfg.m, storage=cfg.storage,
             )
+            if cfg.ivf_block is not None:
+                ivf_kwargs["block"] = int(cfg.ivf_block)
+            with log_phase(self.logger, "knn", self.timings_, X.device):
+                C, indices = ivf_knn(X, **ivf_kwargs)
+                if self.metric == "euclidean":
+                    C = torch.sqrt(torch.clamp(C, min=0.0))
+            return (C, indices) if return_indices else C
         with log_phase(self.logger, "knn", self.timings_, X.device):
             C, indices = knn_graph(
                 X,

@@ -7,9 +7,12 @@ Counterpart of ``torchdr_tpu/ops/distance.py``:
 - :func:`knn_graph` — exact kNN over row blocks (O(block · m) memory), one
   float32 matrix product and one ``torch.topk`` per block, with a running
   top-k merge over column chunks for large databases.
+- :func:`knn_graph_host_chunked` — :func:`knn_graph` called on slices of
+  the queries, with the same results.
 
 Self-exclusion adds ``MASK_VALUE`` on the diagonal, as the JAX package does.
-``knn_graph_host_chunked`` waits for a later slice.
+Every index output is int32, as ``lax.top_k`` returns it; callers widen
+with ``.long()`` where torch needs int64.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def pairwise_distances(
 ):
     """Dense pairwise distances, optionally reduced to the k smallest per row.
 
-    Returns ``(C, indices)`` where ``indices`` is None when ``k`` is None.
+    Returns ``(C, indices)`` where ``indices`` (int32) is None when ``k``
+    is None.
     """
     check_metric(metric)
     self_mode = Y is None
@@ -39,7 +43,8 @@ def pairwise_distances(
         C = C + MASK_VALUE * torch.eye(C.shape[0], dtype=C.dtype, device=C.device)
     if k is None:
         return C, None
-    return torch.topk(C, k, dim=1, largest=False, sorted=True)
+    d, i = torch.topk(C, k, dim=1, largest=False, sorted=True)
+    return d, i.to(torch.int32)
 
 
 def pairwise_distances_indexed(
@@ -140,3 +145,39 @@ def knn_graph(
         dists[r0 : r0 + block] = d
         indices[r0 : r0 + block] = i
     return dists, indices
+
+
+def knn_graph_host_chunked(
+    X: torch.Tensor,
+    Y: Optional[torch.Tensor] = None,
+    k: int = 15,
+    query_chunk: int = 131_072,
+    **kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN called on host-level slices of ``query_chunk`` queries.
+
+    The JAX package slices so that no single dispatch runs long enough for
+    its TPU runtime to kill it. Each slice searches the whole database at
+    k + 1 without the diagonal mask, and a stable reorder moves each row's
+    own id to the end before the first k are kept, so the results equal
+    :func:`knn_graph`'s.
+    """
+    n = X.shape[0]
+    self_mode = Y is None
+    Yc = X if self_mode else Y
+    if n <= query_chunk:
+        return knn_graph(X, Y, k=k, **kwargs)
+    exclude = kwargs.pop("exclude_diag", self_mode)
+    d_out, i_out = [], []
+    for s in range(0, n, query_chunk):
+        Xq = X[s : s + query_chunk]
+        d, i = knn_graph(Xq, Yc, k=k + (1 if exclude else 0), exclude_diag=False, **kwargs)
+        if exclude:
+            rows = s + torch.arange(Xq.shape[0], device=X.device)
+            is_self = (i == rows[:, None]).to(torch.int32)
+            order = torch.argsort(is_self, dim=1, stable=True)
+            d = torch.gather(d, 1, order)[:, :k]
+            i = torch.gather(i, 1, order)[:, :k]
+        d_out.append(d)
+        i_out.append(i)
+    return torch.cat(d_out), torch.cat(i_out)

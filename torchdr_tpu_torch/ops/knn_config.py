@@ -1,8 +1,9 @@
 """kNN tier configuration object (copy of ``torchdr_tpu/ops/knn_config.py``).
 
-The port builds the exact tier only; "approx" maps to exact (see
-:func:`torchdr_tpu_torch.ops.distance.knn_graph`) and "ivf" waits for a
-later slice. The IVF fields are kept so a configuration carries over.
+"exact" is the flat tier; "approx" maps to it (see
+:func:`torchdr_tpu_torch.ops.distance.knn_graph`); "ivf" is the float32
+IVF tier (:func:`torchdr_tpu_torch.ops.ivf.ivf_knn`), whose knobs are the
+fields from ``nprobe`` on.
 """
 
 from __future__ import annotations
@@ -18,12 +19,23 @@ class KnnConfig:
     Parameters
     ----------
     mode : {"exact", "approx", "ivf"}
+        "ivf": coarse quantization and a block-shared probe (``ops/ivf.py``).
     precision : {"highest", "high", "default"}
         Accepted for parity; the port's gram is always exact float32.
     recall_target : float
         Recall target of the JAX package's approx tier (unused here).
     block_size : int
-        Query rows per block.
+        Query rows per block (exact and approx tiers).
+    nprobe, n_clusters, budget, merge, m, ivf_block, rerank
+        The IVF search's knobs, passed to ``ivf_knn`` (``ivf_block`` is its
+        ``block``). ``rerank=False`` returns the scan scores as distances,
+        the estimators' default.
+    nomination : {None, "flat", "adjacency", "supers"}
+        None picks adjacency when the index has a cell table and nlist ≥
+        1024, flat otherwise. "supers" raises (ROADMAP item 12c).
+    storage : {"auto", "f32", "split", "int8"}
+        "auto" and "f32" build float32 storage; "split", "int8" and "auto"
+        past 4 GB raise (ROADMAP item 12c).
     """
 
     mode: str = "exact"
@@ -66,5 +78,5 @@ class KnnConfig:
 EXACT = KnnConfig()
 #: Preset: the JAX package's fast tier; the port runs it exactly.
 FAST = KnnConfig(mode="approx", precision="high", recall_target=0.95)
-#: Preset: the IVF tier (not ported yet).
+#: Preset: the IVF tier, float32 storage (``ops/ivf.py``).
 IVF = KnnConfig(mode="ivf", precision="high")

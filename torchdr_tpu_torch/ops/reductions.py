@@ -66,10 +66,12 @@ def svd_flip(u: torch.Tensor, v: torch.Tensor, u_based_decision: bool = True):
 
 
 def kmin(C: torch.Tensor, k: int, dim: int = 1):
-    """k smallest values (ascending) and their indices along ``dim``."""
-    return torch.topk(C, k, dim=dim, largest=False, sorted=True)
+    """k smallest values (ascending) and their int32 indices along ``dim``."""
+    v, i = torch.topk(C, k, dim=dim, largest=False, sorted=True)
+    return v, i.to(torch.int32)
 
 
 def kmax(C: torch.Tensor, k: int, dim: int = 1):
-    """k largest values (descending) and their indices along ``dim``."""
-    return torch.topk(C, k, dim=dim, largest=True, sorted=True)
+    """k largest values (descending) and their int32 indices along ``dim``."""
+    v, i = torch.topk(C, k, dim=dim, largest=True, sorted=True)
+    return v, i.to(torch.int32)
