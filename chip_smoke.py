@@ -17,13 +17,23 @@ Phases, in order; any failure exits non-zero:
    ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
    10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
    10-NN label accuracy of the embedding;
-5. IVF: ``ivf_build`` and a second, synchronised ``ivf_knn`` on 1,300,000 x 50
+5. the estimators without a kernel of their own, as in phase 4 (every
+   launch counter must read 0): ``LargeVis(random_state=0)``,
+   ``InfoTSNE(random_state=0, lr=INFOTSNE_LR)`` (n/40: "auto" misses the
+   accuracy gate here, in the JAX package too) and
+   ``PACMAP(random_state=0)`` on the 60,000 x 784 rows, and
+   ``TSNEkhorn(random_state=0, min_grad_norm=TSNEKHORN_MIN_GRAD_NORM)`` on
+   the 10,000 x 784 rows (at the default 1e-4 it stops after its first
+   step, in the JAX package too);
+6. IVF: ``ivf_build`` and a second, synchronised ``ivf_knn`` on 1,300,000 x 50
    float32 clustered rows (``benchmarks.ivf_recall.make_clustered``: 50
    Gaussian clusters, component j scaled by 1/(j + 1), seed 0), timed, with
-   the knobs the defaults resolve to; recall@30 of that graph on 2,000 rows
-   against the exact ``knn_graph`` (fails below 0.95); then
-   ``UMAP(random_state=0, knn_mode=IVF)`` on the same rows, as in phase 4;
-6. gather: the bucketed gathers G1-G3 against their plain versions bit for
+   the knobs the defaults resolve to and a query block of one chunk of the
+   index; recall@30 of that graph on 2,000 rows against the exact
+   ``knn_graph`` (fails below 0.95); then ``UMAP(random_state=0,
+   knn_mode=KnnConfig(mode="ivf", precision="high", ivf_block=chunk))`` (the
+   IVF preset at that block) on the same rows, as in phase 4;
+7. gather: the bucketed gathers G1-G3 against their plain versions bit for
    bit, at small windows, at edge cases of their walks over k-steps and
    members, and at the attraction-gather microbenchmark's full shape (20,312
    windows of 512 rows, 1,024 ids each, D = 8), with their eager times,
@@ -32,19 +42,20 @@ Phases, in order; any failure exits non-zero:
    repeats, with their spread); then that microbenchmark
    (``torchdr_tpu_torch.benchmarks.gather_microbench.main``) with every
    launch counter set to 0 just before and read just after;
-7. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+8. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-8. with ``--profile`` only: device time by kernel and the device's idle
-   share over 200 optimizer steps of the UMAP fit and of the t-SNE fit
-   (torch.profiler).
+9. with ``--profile`` only: device time by kernel and the device's idle
+   share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
+   and over 100 steps of each fit of phase 5 (torch.profiler).
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
 kernel in one call. With ``--gather`` it builds the gathers alone and runs
-phase 6 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
-runs phase 5 alone. Each of these prints no result line.
+phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
+runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone.
+Each of these prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -64,6 +75,16 @@ import numpy as np
 
 N, D_IN, N_CLUSTERS, SEED = 60_000, 784, 50, 0
 N_TSNE = 10_000  # the exact t-SNE/SNE paths' size
+# TSNEkhorn's default min_grad_norm (1e-4) lies above its gradient's norm at
+# the PCA init scaled to 1e-4, so the fit stops at its first convergence
+# check, after one step, in the JAX package too; the other estimators'
+# default lets its 2,000 steps run
+TSNEKHORN_MIN_GRAD_NORM = 1e-7
+# InfoTSNE's lr="auto" (n/4 = 15,000 after the exaggeration phase) leaves the
+# 60,000 rows at 10-NN accuracy 0.847 after its 1,000 steps (0.864 in the
+# JAX package on the CPU; 1.0 at n = 5,000 in both): its clusters have not
+# separated yet. n/40 reads 0.9993 on the card, n/12 0.9781
+INFOTSNE_LR = N / 40
 N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
 # K1 is timed at (n, S, d): the UMAP path's shape, the same in 3-D, a size
 # where the device and not the host bounds a step, the sample of 2048 that
@@ -76,9 +97,12 @@ K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2
 # single-cell data: of the decays tried (0, 0.5, 1) it is the smallest at
 # which recall@30 clears IVF_RECALL_MIN. Isotropic 50-D noise is the worst
 # case of any IVF index: at nprobe 16 of the ~91 cells of a cluster,
-# recall@30 is 0.34 with either nomination (PERF.md section 5). The recall
-# is that of the port's adjacency nomination (every cell a query block
-# touches, ops/ivf.py), not of the JAX package's.
+# recall@30 is 0.34 with either nomination (PERF.md section 5). The search
+# and the fit take a query block of one chunk of the index (the chunk
+# depends on n and the cell count only: 384 here), so that no block
+# straddles two cells: adjacency nomination samples a block's home cell at
+# its first row only, as the JAX package does (ops/ivf.py), and at the
+# default block of 256 the rows of a block's second cell lose recall.
 N_IVF, D_IVF, IVF_DECAY, IVF_K, IVF_NPROBE = 1_300_000, 50, 1.0, 30, 16
 IVF_EVAL_ROWS, IVF_RECALL_MIN = 2_000, 0.95
 K1_SFU_CALLS = 2.5  # per pair, as K1 is built: lg2, ex2, and one reciprocal for two pairs
@@ -748,10 +772,11 @@ def run_gather_path(torch, counters, times) -> list:
 
 
 def run_ivf_path(torch, counters) -> dict:
-    """Phase 5: the IVF index built and searched at 1.3M x 50 with the
-    estimators' settings (k = 30, nprobe 16, ``rerank=False``), its recall
-    held to the exact graph, then the UMAP fit on the IVF graph."""
-    from torchdr_tpu_torch import IVF, UMAP
+    """Phase 6: the IVF index built and searched at 1.3M x 50 with the
+    estimators' settings (k = 30, nprobe 16, ``rerank=False``) and a query
+    block of one chunk, its recall held to the exact graph, then the UMAP
+    fit on the IVF graph at that block."""
+    from torchdr_tpu_torch import KnnConfig, UMAP
     from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered, recall
     from torchdr_tpu_torch.ops.distance import knn_graph
     from torchdr_tpu_torch.ops.ivf import _resolve_search_knobs, ivf_build, ivf_knn
@@ -765,7 +790,8 @@ def run_ivf_path(torch, counters) -> dict:
     index = ivf_build(Xt)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    search = dict(k=IVF_K, nprobe=IVF_NPROBE, index=index, rerank=False)
+    block = index.chunk  # no query block straddles two cells
+    search = dict(k=IVF_K, nprobe=IVF_NPROBE, index=index, rerank=False, block=block)
     ivf_knn(None, **search)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -783,7 +809,8 @@ def run_ivf_path(torch, counters) -> dict:
     ivf = {
         "n": N_IVF, "d": D_IVF, "build_s": build_s, "search_s": search_s, "peak_mem_gb": peak_gb,
         "nlist": int(index.centroids.shape[0]), "supers": int(index.super_centroids.shape[0]),
-        "chunk": index.chunk, "nprobe": nprobe, "budget": budget, "m": m, "merge": merge,
+        "chunk": index.chunk, "block": block, "nprobe": nprobe, "budget": budget, "m": m,
+        "merge": merge,
         "max_ch": max_ch, "nomination": nomination, "adjacency_P": int(index.cell_adj.shape[1]),
         "storage_gb": index.X_sorted.numel() * 4 / 1e9, "recall_at_30": rec,
         "recall_rows": IVF_EVAL_ROWS,
@@ -793,9 +820,30 @@ def run_ivf_path(torch, counters) -> dict:
         raise AssertionError(f"IVF: recall@{IVF_K} {rec} < {IVF_RECALL_MIN}")
     del Xt, index, I, exact
     torch.cuda.empty_cache()
-    ivf["fit"] = run_fit(torch, UMAP(random_state=0, knn_mode=IVF, device="auto"), X, labels,
+    knn = KnnConfig(mode="ivf", precision="high", ivf_block=block)  # the IVF preset at `block`
+    ivf["fit"] = run_fit(torch, UMAP(random_state=0, knn_mode=knn, device="auto"), X, labels,
                          counters, expect=("fused_shared_repulsion",))
     return ivf
+
+
+def run_ne_path(torch, counters, X, labels) -> list:
+    """Phase 5: LargeVis, InfoTSNE and PACMAP on the 60,000 x 784 rows of
+    phase 4, and TSNEkhorn on 10,000 x 784 from the same generator, each at
+    its defaults but INFOTSNE_LR and TSNEKHORN_MIN_GRAD_NORM, as in phase 4;
+    none has a kernel, so every launch counter must read 0."""
+    from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+
+    fits = [run_fit(torch, model, X, labels, counters, expect=()) for model in (
+        LargeVis(random_state=0, device="auto"),
+        InfoTSNE(random_state=0, lr=INFOTSNE_LR, device="auto"),
+        PACMAP(random_state=0, device="auto"),
+    )]
+    X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    fits.append(run_fit(torch, TSNEkhorn(random_state=0, min_grad_norm=TSNEKHORN_MIN_GRAD_NORM,
+                                         device="auto"),
+                        X10, labels10, counters, expect=()))
+    return fits
 
 
 def run_fit(torch, model, X, labels, counters, expect) -> dict:
@@ -845,14 +893,14 @@ def knn_label_accuracy(torch, Z, labels, n_sub: int = 10_000, k: int = 10, seed:
 
 
 def profile_optimize(torch, model_cls, X, steps: int = 200, top: int = 8,
-                     device: str = "auto") -> dict:
+                     device: str = "auto", **params) -> dict:
     """Device time by kernel over ``steps`` optimizer steps of a fit of
-    ``model_cls`` on X (torch.profiler), and the device's busy share of that
-    window's wall time. The affinity and init phases run first, outside the
-    window."""
+    ``model_cls(**params)`` on X (torch.profiler), and the device's busy
+    share of that window's wall time. The affinity and init phases run
+    first, outside the window."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = model_cls(random_state=0, max_iter=steps, device=device)
+    model = model_cls(random_state=0, max_iter=steps, device=device, **params)
     Xd = torch.from_numpy(X).to(model._resolve_device())
     model.n_samples_in_, model.n_features_in_ = Xd.shape
     model._generator_ = model._root_generator()
@@ -882,6 +930,10 @@ def profile_optimize(torch, model_cls, X, steps: int = 200, top: int = 8,
     ]
     kernels.sort(key=device_us, reverse=True)
     busy_s = sum(device_us(e) for e in kernels) / 1e6
+    # kernel names are cut to 60 characters; templates that share a prefix add up
+    top_ms = {}
+    for e in kernels[:top]:
+        top_ms[e.key[:60]] = top_ms.get(e.key[:60], 0.0) + device_us(e) / 1e3 / steps
     return {
         "model": model_cls.__name__,
         "n": X.shape[0],
@@ -889,9 +941,7 @@ def profile_optimize(torch, model_cls, X, steps: int = 200, top: int = 8,
         "wall_ms_per_step": wall / steps * 1e3,
         "device_busy_ms_per_step": busy_s / steps * 1e3,
         "device_idle_share": 1.0 - busy_s / wall,
-        "top_kernels_ms_per_step": {
-            e.key[:60]: device_us(e) / 1e3 / steps for e in kernels[:top]
-        },
+        "top_kernels_ms_per_step": top_ms,
     }
 
 
@@ -925,8 +975,11 @@ def main() -> int:
     k1_only = "--k1" in sys.argv[1:]
     gather_only = "--gather" in sys.argv[1:]
     ivf_only = "--ivf" in sys.argv[1:]
+    ne_only = "--ne" in sys.argv[1:]
     t0 = time.perf_counter()
-    if k1_only or gather_only or ivf_only:
+    if ne_only:
+        libs = []  # phase 5 launches no kernel
+    elif k1_only or gather_only or ivf_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
         libs = build_libraries()
@@ -941,6 +994,13 @@ def main() -> int:
         run_ivf_path(torch, counters)
         print(smi, flush=True)
         return 0
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+
+    X, labels = make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
+    if ne_only:
+        run_ne_path(torch, counters, X, labels)
+        print(smi, flush=True)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -952,9 +1012,6 @@ def main() -> int:
     k2, k3 = check_k2_k3(torch, gen)
 
     # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784
-    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
-
-    X, labels = make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
     umap = run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
                    expect=("fused_shared_repulsion",))
     k1["launches"] = umap["launches"]["fused_shared_repulsion"]
@@ -970,15 +1027,25 @@ def main() -> int:
     run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
             counters, expect=("rowlse_fwd", "rowlse_bwd"))
 
-    # 5. the IVF kNN tier and UMAP on its graph at 1.3M x 50
+    # 5. LargeVis, InfoTSNE and PACMAP on 60k x 784, TSNEkhorn on 10k x 784
+    run_ne_path(torch, counters, X, labels)
+
+    # 6. the IVF kNN tier and UMAP on its graph at 1.3M x 50
     run_ivf_path(torch, counters)
 
-    # 6. the gathers and the attraction-gather microbenchmark
+    # 7. the gathers and the attraction-gather microbenchmark
     gathers = run_gather_path(torch, counters, check_gather(torch))
 
     if "--profile" in sys.argv[1:]:
-        print("profile " + json.dumps(profile_optimize(torch, UMAP, X)), flush=True)
-        print("profile " + json.dumps(profile_optimize(torch, TSNE, X10)), flush=True)
+        from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn
+
+        for model_cls, data, steps, params in (
+            (UMAP, X, 200, {}), (TSNE, X10, 200, {}), (LargeVis, X, 100, {}),
+            (InfoTSNE, X, 100, {"lr": INFOTSNE_LR}), (PACMAP, X, 100, {}),
+            (TSNEkhorn, X10, 100, {"min_grad_norm": TSNEKHORN_MIN_GRAD_NORM}),
+        ):
+            prof = profile_optimize(torch, model_cls, data, steps, **params)
+            print("profile " + json.dumps(prof), flush=True)
 
     print(json.dumps({"kernels": [k1, k2, k3, *gathers]}), flush=True)
     print(smi, flush=True)

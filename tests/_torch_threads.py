@@ -19,6 +19,7 @@ relative (absolute below 1)::
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -43,6 +44,22 @@ def _warm():
 @pytest.fixture(scope="module", autouse=True)
 def warm_worker_threads():
     _warm()
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """Run torch's CPU ops on one thread inside the block. A fit of a few
+    hundred steps of small ops (100 rows) takes seconds so, and minutes
+    with torch's default threads when the suite's other workers hold the
+    cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _clustered(n, d, seed, n_clusters=5):

@@ -601,3 +601,159 @@ def test_ivf_build_on_a_cuda_tensor_never_permutes_on_the_host(cuda, monkeypatch
             assert b.is_cuda and torch.equal(torch.sort(a, 1).values, torch.sort(b, 1).values)
         else:
             assert b.is_cuda and torch.equal(a, b), name
+
+
+# --- LargeVis, InfoTSNE, PACMAP, TSNEkhorn and their affinities ---------------
+#
+# None of them has a kernel of its own. On the card each is held to its CPU
+# run at the CPU tests' tolerances (tests/test_torch_ot_affinity.py,
+# test_torch_largevis.py, test_torch_pacmap.py, test_torch_tsnekhorn.py),
+# and each fit launches no kernel.
+
+
+def _ne_data(n=600, d=16, k=5, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=6.0, size=(k, d))
+    return (centers[rng.integers(0, k, n)] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+def _affinities():
+    from torchdr_tpu_torch import (
+        DoublyStochasticQuadraticAffinity,
+        NormalizedGaussianAffinity,
+        NormalizedStudentAffinity,
+        SinkhornAffinity,
+        SymmetricEntropicAffinity,
+    )
+
+    return {
+        # the CPU test's converging setting (343 steps): a solve cut off by
+        # max_iter leaves its trajectory's rounding in P (2.1e-4 on n·P here)
+        "sea_adam": (lambda dev: SymmetricEntropicAffinity(perplexity=12, zero_diag=False,
+                                                           device=dev), 1e-5),
+        "sea_lbfgs": (lambda dev: SymmetricEntropicAffinity(
+            perplexity=12, optimizer="LBFGS", lr=0.5, max_iter=300, device=dev), 1e-4),
+        "sinkhorn": (lambda dev: SinkhornAffinity(base_kernel="student", device=dev), 1e-5),
+        "gaussian": (lambda dev: NormalizedGaussianAffinity(normalization_dim=1, device=dev), 1e-5),
+        "student": (lambda dev: NormalizedStudentAffinity(device=dev), 1e-5),
+        "quadratic": (lambda dev: DoublyStochasticQuadraticAffinity(lr=1e-1, max_iter=2000,
+                                                                    device=dev), 1e-5),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sea_adam", "sea_lbfgs", "sinkhorn", "gaussian", "student",
+                                  "quadratic"])
+def test_ot_affinity_on_the_card_equals_the_cpu(cuda, name):
+    """n·P at the CPU tests' tolerance (1e-5; the SEA's LBFGS branch 1e-4
+    on P, whose line search amplifies rounding)."""
+    make, tol = _affinities()[name]
+    X = np.random.default_rng(0 if name == "sea_adam" else 1).normal(size=(100, 6)).astype(
+        np.float32)
+    n = X.shape[0]
+    want = make("cpu")(X)
+    got = make(cuda.type)(torch.from_numpy(X).to(cuda))
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    scale = 1.0 if name == "sea_lbfgs" else n
+    assert float((scale * (got.cpu() - want)).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_pacmap_affinity_on_the_card_equals_the_cpu(cuda):
+    from torchdr_tpu_torch import PACMAPAffinity
+
+    X = np.random.default_rng(0).normal(size=(300, 12)).astype(np.float32)
+    cpu, card = PACMAPAffinity(n_neighbors=8, device="cpu"), PACMAPAffinity(n_neighbors=8,
+                                                                          device=cuda.type)
+    _, want = cpu(X)
+    _, got = card(torch.from_numpy(X).to(cuda))
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert torch.allclose(card.rho_.cpu(), cpu.rho_, rtol=1e-5, atol=0)
+
+
+def _pre_loop(model, X, device):
+    """A port estimator's pre-loop state on ``device``, as its fit makes it."""
+    Xd = torch.from_numpy(X).to(device)
+    model.device_ = Xd.device
+    model.n_samples_in_, model.n_features_in_ = X.shape
+    model._generator_ = model._root_generator()
+    model._compute_input_affinity(Xd)
+    model.on_affinity_computation_end()
+    Z0 = model._init_embedding(Xd)
+    consts = model._build_consts(Xd)
+    return Z0, consts, model._init_carry(consts)
+
+
+def _ne_models():
+    from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn
+
+    return {
+        "LargeVis": lambda dev, **kw: LargeVis(perplexity=10, random_state=0, device=dev, **kw),
+        "LargeVis-per-point": lambda dev, **kw: LargeVis(
+            perplexity=10, random_state=0, shared_negatives=False, device=dev, **kw),
+        "InfoTSNE": lambda dev, **kw: InfoTSNE(perplexity=10, n_negatives=30, random_state=0,
+                                               device=dev, **kw),
+        "PACMAP": lambda dev, **kw: PACMAP(n_neighbors=8, iter_per_phase=10, random_state=0,
+                                           device=dev, **kw),
+        "TSNEkhorn": lambda dev, **kw: TSNEkhorn(perplexity=10, random_state=0, device=dev, **kw),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["LargeVis", "LargeVis-per-point", "InfoTSNE", "PACMAP",
+                                  "TSNEkhorn"])
+def test_ne_step_on_the_card_equals_the_cpu(cuda, name):
+    """One step's loss and gradient on the card against the CPU, from the
+    CPU's pre-loop state and draws moved to the card (the affinities are
+    held card against CPU above): the loss at 1e-5 relative, the gradient
+    at 1e-5 absolute, the CPU tests' one-step tolerances."""
+    X = _ne_data(n=300)
+    m = _ne_models()[name]("cpu")
+    _, consts, carry = _pre_loop(m, X, "cpu")
+    n = X.shape[0]
+    g = torch.Generator().manual_seed(5)
+    draw = {}
+    if name == "PACMAP":
+        draw["cand"] = torch.randint(0, n - 1, (m.n_mid_near, n, 6), generator=g)
+    if name != "TSNEkhorn":
+        if m.shared_negatives and name != "PACMAP":
+            draw["neg_ids"] = torch.randint(0, n, (m._shared_negative_count(n),), generator=g)
+        else:
+            draw["u"] = torch.rand((n, m.n_negatives), generator=g)
+    Z = torch.from_numpy((2.0 * np.random.default_rng(3).normal(size=(n, 2))).astype(np.float32))
+
+    def on(dev, tree):
+        return {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
+
+    results = []
+    for dev in ("cpu", cuda):
+        Zg = Z.to(dev).requires_grad_(True)
+        c, cy, dr = on(dev, consts), on(dev, carry), on(dev, draw)
+        it = 3
+        if name == "TSNEkhorn":
+            loss, _ = m._loss(Zg, c, cy, it, 1.0)
+        else:
+            attr, cy = m._attractive_loss(Zg, c, cy, it, **({"cand": dr.pop("cand")}
+                                                            if "cand" in dr else {}))
+            rep, _ = m._repulsive_loss(Zg, c, cy, it, **dr)
+            loss = attr + rep
+        (grad,) = torch.autograd.grad(loss, Zg)
+        assert grad.device.type == torch.device(dev).type
+        results.append((float(loss), grad.cpu()))
+    (lc, gc), (lg, gg) = results
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert float((gg - gc).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["LargeVis", "LargeVis-per-point", "InfoTSNE", "PACMAP",
+                                  "TSNEkhorn"])
+def test_ne_fit_on_the_card_launches_no_kernel(cuda, name):
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, bucket_take, bucket_onehot,
+                bucket_2level)
+    for fn in counters:
+        fn.launches = 0
+    model = _ne_models()[name](cuda.type, max_iter=60)
+    Z = model.fit_transform(_ne_data(n=1500))
+    assert model.n_iter_ > 0 and Z.shape == (1500, 2) and np.all(np.isfinite(Z))
+    assert {fn.__name__: fn.launches for fn in counters} == {fn.__name__: 0 for fn in counters}

@@ -513,7 +513,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "torchdr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert ROOT / "torchdr_tpu_torch" / "benchmarks" / "gather_microbench.py" in files
-    for new in ("ops/ivf.py", "ops/kmeans.py", "benchmarks/ivf_recall.py"):
+    for new in ("ops/ivf.py", "ops/kmeans.py", "benchmarks/ivf_recall.py", "affinity/quadratic.py",
+                "models/neighbor/largevis.py", "models/neighbor/pacmap.py",
+                "models/neighbor/tsnekhorn.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:

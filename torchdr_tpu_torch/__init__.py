@@ -19,8 +19,17 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .affinity import EntropicAffinity, UMAPAffinity  # noqa: E402
-from .models.neighbor import SNE, TSNE, UMAP  # noqa: E402
+from .affinity import (  # noqa: E402
+    DoublyStochasticQuadraticAffinity,
+    EntropicAffinity,
+    NormalizedGaussianAffinity,
+    NormalizedStudentAffinity,
+    PACMAPAffinity,
+    SinkhornAffinity,
+    SymmetricEntropicAffinity,
+    UMAPAffinity,
+)
+from .models.neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn  # noqa: E402
 from .models.spectral import PCA  # noqa: E402
 from .ops.distance import knn_graph, knn_graph_host_chunked, pairwise_distances  # noqa: E402
 from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
@@ -31,7 +40,17 @@ __all__ = [
     "SNE",
     "TSNE",
     "UMAP",
+    "LargeVis",
+    "InfoTSNE",
+    "TSNEkhorn",
+    "PACMAP",
     "EntropicAffinity",
+    "NormalizedGaussianAffinity",
+    "NormalizedStudentAffinity",
+    "SinkhornAffinity",
+    "SymmetricEntropicAffinity",
+    "DoublyStochasticQuadraticAffinity",
+    "PACMAPAffinity",
     "UMAPAffinity",
     "PCA",
     "knn_graph",

@@ -1,8 +1,15 @@
 """Affinities."""
 
 from .base import Affinity, LogAffinity, SparseAffinity, SparseLogAffinity
-from .entropic import EntropicAffinity
-from .knn_normalized import UMAPAffinity
+from .entropic import (
+    EntropicAffinity,
+    NormalizedGaussianAffinity,
+    NormalizedStudentAffinity,
+    SinkhornAffinity,
+    SymmetricEntropicAffinity,
+)
+from .knn_normalized import PACMAPAffinity, UMAPAffinity
+from .quadratic import DoublyStochasticQuadraticAffinity
 
 __all__ = [
     "Affinity",
@@ -10,5 +17,11 @@ __all__ = [
     "SparseAffinity",
     "SparseLogAffinity",
     "EntropicAffinity",
+    "NormalizedGaussianAffinity",
+    "NormalizedStudentAffinity",
+    "SinkhornAffinity",
+    "SymmetricEntropicAffinity",
+    "DoublyStochasticQuadraticAffinity",
+    "PACMAPAffinity",
     "UMAPAffinity",
 ]

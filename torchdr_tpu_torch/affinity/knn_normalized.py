@@ -1,8 +1,9 @@
 """Affinities normalized by nearest-neighbor distances.
 
-Counterpart of ``torchdr_tpu/affinity/knn_normalized.py``; this slice
-carries :class:`UMAPAffinity` (fuzzy simplicial set) and its calibration.
-The other affinities of that module wait for later slices.
+Counterpart of ``torchdr_tpu/affinity/knn_normalized.py``; the port
+carries :class:`UMAPAffinity` (fuzzy simplicial set) with its calibration,
+and :class:`PACMAPAffinity` (PACMAP's neighbour selection). The
+self-tuning, MAGIC and PHATE affinities wait for a later slice.
 """
 
 from __future__ import annotations
@@ -90,3 +91,54 @@ def _umap_calibrate(C: torch.Tensor, n_neighbors: float, max_iter: int):
     eps = binary_search(marginal_gap, n, max_iter=max_iter, dtype=C.dtype, device=C.device)
     P = torch.exp(-shifted / eps[:, None])
     return P, rho, eps
+
+
+def _smallest(C: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k smallest entries of each row, ascending, equal
+    values by index as ``lax.top_k`` orders them."""
+    return torch.sort(C, dim=1, stable=True).indices[:, :k]
+
+
+class PACMAPAffinity(SparseAffinity):
+    r"""PACMAP neighbour selection (Wang et al. 2021).
+
+    kNN with k = n_neighbors + 50, distances scaled by ρ_i ρ_j (ρ the mean
+    of the 4th-6th NN distances), then the n_neighbors smallest scaled
+    distances. Returns indices only: ``(None, indices)``.
+    """
+
+    def __init__(
+        self,
+        n_neighbors: int = 10,
+        metric: str = "sqeuclidean",
+        zero_diag: bool = True,
+        device: str = "auto",
+        verbose: bool = False,
+        **kwargs,
+    ):
+        super().__init__(
+            metric=metric,
+            zero_diag=zero_diag,
+            device=device,
+            verbose=verbose,
+            sparsity=True,
+            **kwargs,
+        )
+        self.n_neighbors = n_neighbors
+
+    def _compute_sparse_affinity(self, X, return_indices: bool = True, **kwargs):
+        n = X.shape[0]
+        k = check_neighbor_param(min(self.n_neighbors + 50, n - 1), n, logger=self.logger)
+        C, temp_indices = self._distance_matrix(X, k=k, return_indices=True)
+
+        sq_nn = torch.gather(C, 1, _smallest(C, min(6, k)))
+        rho = torch.mean(torch.sqrt(sq_nn)[:, 3:6], dim=1)
+        self.rho_ = rho
+
+        scaled = C / (rho[:, None] * rho[temp_indices.long()])
+        local = _smallest(scaled, self.n_neighbors)
+        final_indices = torch.gather(temp_indices, 1, local)
+
+        if return_indices:
+            return None, final_indices
+        return scaled

@@ -1,18 +1,22 @@
 """Recall@k of the IVF tier against the exact graph, over families of
 clustered data, on one card.
 
-    python -m torchdr_tpu_torch.benchmarks.ivf_recall [clusters:decay ...]
+    python -m torchdr_tpu_torch.benchmarks.ivf_recall [--block B,...] [clusters:decay ...]
 
 Each case makes ``N`` x ``D`` float32 rows (:func:`make_clustered`: Gaussian
 clusters whose component j is scaled by (j + 1)^-decay; decay 0 is
-isotropic), builds the index with every default (``ivf_build``), searches
-it with ``ivf_knn`` at k = 30, nprobe 16, ``rerank=False`` (the
-estimators' settings), once with the default nomination and once with flat
-nomination, and holds both to the exact ``knn_graph`` on 2,000 rows. It
-prints one JSON line per case with the resolved knobs, the build and search
-times, and the recall of the rows in the cell of their 256-row query
-block's first row ("home") and of the others, whose cell the JAX package's
-adjacency nomination does not sample (``ops/ivf.py``).
+isotropic), builds the index with every default (``ivf_build``), and for
+each query block B (``--block``, default ``256,chunk``: the search's default
+block and one chunk of the index) searches it with ``ivf_knn`` at k = 30,
+nprobe 16, ``rerank=False`` (the estimators' settings), once with the
+default nomination and once with flat nomination, and holds both to the
+exact ``knn_graph`` on 2,000 rows. It prints one JSON line per case with
+the resolved knobs, the build time and, per block, the search times and
+the recall of the rows in the cell of their query block's first row
+("home") and of the others. Adjacency nomination samples a self-query
+block's home cells at rows ``j · chunk`` for j < max(1, B // chunk), as the
+JAX package does (``ops/ivf.py``): with B < chunk, the "other" rows sit in
+a block whose second cell is never sampled; with B = chunk there are none.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def recall(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (want[:, :, None].long() == got[:, None, :].long()).any(-1).float().mean(1)
 
 
-def run_case(n_clusters: int, decay: float, device) -> dict:
+def run_case(n_clusters: int, decay: float, device, blocks=(256, "chunk")) -> dict:
     from torchdr_tpu_torch.ops.distance import knn_graph
     from torchdr_tpu_torch.ops.ivf import _resolve_search_knobs, ivf_build, ivf_knn
 
@@ -69,28 +73,33 @@ def run_case(n_clusters: int, decay: float, device) -> dict:
            "nlist": int(index.centroids.shape[0]), "chunk": index.chunk,
            "budget": knobs[1], "m": knobs[2], "merge": knobs[3], "nomination": knobs[7],
            "max_cell": int(index.counts.max())}
-    # the cell of each evaluated row, and the cell its query block's first row is in
+    # the sorted position of each evaluated row
     ids = index.ids_sorted.long()
     pos = torch.empty(N, dtype=torch.long, device=device)
     live = ids >= 0
     pos[ids[live]] = torch.nonzero(live).squeeze(1)
     p = pos[rows]
-    home = (index.cells_sorted[p] == index.cells_sorted[(p // 256) * 256]).cpu()
-    for label, nom in (("default", None), ("flat", "flat")):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, I = ivf_knn(None, k=K, nprobe=NPROBE, index=index, rerank=False, nomination=nom)
-        torch.cuda.synchronize()
-        r = recall(I[rows], exact).cpu()
-        out[f"{label}_search_s"] = time.perf_counter() - t0
-        out[f"{label}_recall"] = float(r.mean())
-        out[f"{label}_recall_home"] = float(r[home].mean())
-        out[f"{label}_recall_other"] = float(r[~home].mean())
-    out["home_share"] = float(home.float().mean())
+    for b in blocks:
+        B = index.chunk if b == "chunk" else int(b)
+        # rows in the cell of their query block's first row
+        home = (index.cells_sorted[p] == index.cells_sorted[(p // B) * B]).cpu()
+        res = {"home_share": float(home.float().mean())}
+        for label, nom in (("default", None), ("flat", "flat")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, I = ivf_knn(None, k=K, nprobe=NPROBE, index=index, rerank=False, nomination=nom,
+                           block=B)
+            torch.cuda.synchronize()
+            r = recall(I[rows], exact).cpu()
+            res[f"{label}_search_s"] = time.perf_counter() - t0
+            res[f"{label}_recall"] = float(r.mean())
+            res[f"{label}_recall_home"] = float(r[home].mean())
+            res[f"{label}_recall_other"] = float(r[~home].mean()) if (~home).any() else None
+        out[f"block_{B}"] = res
     return out
 
 
-def main(cases=CASES) -> list:
+def main(cases=CASES, blocks=(256, "chunk")) -> list:
     import subprocess
 
     if not torch.cuda.is_available():
@@ -102,7 +111,7 @@ def main(cases=CASES) -> list:
     results = []
     for case in cases:
         clusters, decay = case.split(":")
-        res = run_case(int(clusters), float(decay), torch.device("cuda"))
+        res = run_case(int(clusters), float(decay), torch.device("cuda"), blocks)
         res["device"] = smi
         print(json.dumps(res), flush=True)
         results.append(res)
@@ -110,4 +119,11 @@ def main(cases=CASES) -> list:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or CASES)
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--block", default="256,chunk",
+                    help="query blocks, comma-separated; 'chunk' is the index's chunk")
+    ap.add_argument("cases", nargs="*", default=list(CASES))
+    a = ap.parse_args()
+    main(a.cases, tuple(b if b == "chunk" else int(b) for b in a.block.split(",")))

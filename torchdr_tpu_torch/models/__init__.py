@@ -1,6 +1,6 @@
 """Estimators."""
 
-from .neighbor import SNE, TSNE, UMAP
+from .neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn
 from .spectral import PCA
 
-__all__ = ["SNE", "TSNE", "UMAP", "PCA"]
+__all__ = ["SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP", "PCA"]

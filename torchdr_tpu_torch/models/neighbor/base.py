@@ -134,7 +134,7 @@ class NegativeSamplingNeighborEmbedding(NeighborEmbedding):
     def on_affinity_computation_end(self):
         super().on_affinity_computation_end()
         n = self.n_samples_in_
-        device = self.affinity_in_.device
+        device = self.device_
         self_idx = torch.arange(n, device=device)[:, None]
         if self.discard_NNs and self.NN_indices_ is not None:
             # -1 pads become distinct out-of-range sentinels: they sort last

@@ -12,10 +12,16 @@ Counterpart of ``torchdr_tpu/ops/ivf.py``, float32 storage tier:
 - **Search** (:func:`ivf_knn`, :func:`ivf_knn_queries`): queries go in
   blocks of ``block`` rows. Each block votes for the cells its queries want
   probed (flat: every centroid; adjacency: the nearest-cell lists of the
-  block's home cells), expands the vote-ordered cells into ``budget``
-  slots of ``chunk`` rows, scores the block against all of them in one
-  product, keeps the best m per query (``merge``) and, with ``rerank``,
-  recomputes those m distances exactly.
+  block's home cells, sampled for self queries at rows ``j · chunk`` of
+  the block for j < max(1, block // chunk), as in the JAX package),
+  expands the vote-ordered cells into ``budget`` slots of ``chunk`` rows,
+  scores the block against all of them in one product, keeps the best m
+  per query (``merge``) and, with ``rerank``, recomputes those m distances
+  exactly. A self-query block that straddles
+  a cell boundary (block < chunk with ``chunk % block != 0``, or
+  block ≥ chunk with ``block % chunk != 0``) never samples its second
+  cell, and the rows there lose recall, in the JAX package too (ROADMAP,
+  "Quirks of the reference"); a block that divides the chunk avoids it.
 
 Where the JAX package maps a function over the blocks (``lax.map``), the
 port runs ``G`` blocks at a time as one batched product, batched
@@ -39,14 +45,6 @@ Deviations from the JAX package (ROADMAP queue 3):
   buffers over 4 GB (``ops/ivf.py:1148-1152, :1208-1211``).
 - The bf16 residual split, int8 storage and supers nomination (ROADMAP
   item 12c) raise ``NotImplementedError``.
-- Adjacency nomination of self queries takes the cell table rows of every
-  cell the block touches: the cells at the block's first row and at each
-  chunk start inside it. The JAX package takes those at rows ``j · chunk``
-  for j < max(1, block // chunk) only, which misses the second cell of a
-  block that straddles a cell boundary (block 256 against chunk 384 at
-  1.3M rows: a fifth of the rows, with recall@30 0.40-0.73 where their
-  neighbours in one-cell blocks reach 0.96-0.99). Where ``block`` is a
-  multiple of ``chunk`` both take the same cells and give the same result.
 - On the card, votes and k-means sums are added by atomic operations whose
   order varies; cells whose vote totals are equal in exact arithmetic may
   rank either way between runs.
@@ -551,8 +549,7 @@ def _ivf_search_impl(
     n_slots = min(budget, ncells * max_ch)
     if use_adj:
         P_adj = cell_adj.shape[1]
-        # self queries: one position in each chunk the block touches
-        n_home = min(8, block) if queries_raw else -(-block // chunk) + 1
+        n_home = min(8, block) if queries_raw else max(1, block // chunk)
         n_cand = n_home * P_adj
     else:
         n_cand = nlist
@@ -576,9 +573,7 @@ def _ivf_search_impl(
                 samp = blk[:, None] * block + torch.arange(n_home, device=dev) * (block // n_home)
                 home = q_cells[samp]
             else:
-                start = pos0 + blk[:, None] * block
-                nxt = (start // chunk + torch.arange(1, n_home, device=dev)) * chunk
-                samp = torch.cat([start, torch.minimum(nxt, start + block - 1)], dim=1)
+                samp = pos0 + blk[:, None] * block + torch.arange(n_home, device=dev) * chunk
                 home = cells_sorted[torch.clamp(samp, max=cells_sorted.shape[0] - 1)]
             cand = torch.sort(cell_adj[home.long()].reshape(g, -1), dim=1).values
             dup = torch.cat(

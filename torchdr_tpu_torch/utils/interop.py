@@ -33,15 +33,20 @@ def load_reference_state(estimator, arrays: Mapping[str, object]) -> None:
     """Install a reference fit's pre-loop state in ``estimator``.
 
     ``arrays`` holds numpy arrays under "affinity_in" and "NN_indices"
-    (after pruning, for UMAP) and "init_embedding"; a UMAP state adds the
-    arrays "neg_exclusion" and "neg_valid_counts" and the floats "a" and
-    "b". The tensors land on the estimator's device; ``n_samples_in_`` and
+    (after pruning, for UMAP; None where the fit has none: PACMAP's
+    affinity, a dense affinity's indices) and "init_embedding". A
+    negative-sampling state adds the arrays "neg_exclusion" and
+    "neg_valid_counts", and a UMAP state the floats "a" and "b". The
+    tensors land on the estimator's device; ``n_samples_in_`` and
     a root generator are set as a fit would set them.
     """
     device = resolve_device(estimator.device)
     estimator.device_ = device
     for key, attr in {**_STATE, **_OPTIONAL_STATE}.items():
         if key not in arrays and key in _OPTIONAL_STATE:
+            continue
+        if arrays[key] is None:  # PACMAP's affinity, a dense affinity's indices
+            setattr(estimator, attr, None)
             continue
         arr = np.asarray(arrays[key])
         if arr.dtype.kind == "f":
@@ -52,5 +57,5 @@ def load_reference_state(estimator, arrays: Mapping[str, object]) -> None:
     for key in ("a", "b"):
         if key in arrays:
             setattr(estimator, f"_{key}", float(arrays[key]))
-    estimator.n_samples_in_ = int(estimator.affinity_in_.shape[0])
+    estimator.n_samples_in_ = int(np.asarray(arrays["init_embedding"]).shape[0])
     estimator._generator_ = estimator._root_generator()
