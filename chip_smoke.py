@@ -42,20 +42,34 @@ Phases, in order; any failure exits non-zero:
    repeats, with their spread); then that microbenchmark
    (``torchdr_tpu_torch.benchmarks.gather_microbench.main``) with every
    launch counter set to 0 just before and read just after;
-8. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+8. spectral, as in phase 4 (every launch counter must read 0; none of
+   these has a kernel), each fit also scored by the port's own ``eval``
+   (10-NN label agreement, silhouette, ARI of 50-means): cuSOLVER's SVD
+   drivers on one IncrementalPCA update; ``IncrementalPCA`` and
+   ``ExactIncrementalPCA`` at k = 50 on the 60,000 x 784 rows, each
+   capturing the variance of the port's ``PCA`` within 1e-4 (and
+   ``IncrementalPCA`` at k = 2, reported); ``KernelPCA`` on 10,000 x 784
+   rows with a Gaussian kernel at the median squared distance, by eigh and
+   by LOBPCG at ``tol`` KPCA_TOL (top eigenvalues within 1e-4 lambda_1 of
+   eigh's; the JAX package's stop is reported beside it) and with the
+   self-tuning kernel (dense LOBPCG, reported); the matrix-free LOBPCG on
+   the 60,000 rows, with its iterations, one product's time and each pair's
+   residual |HKHv - lambda v| (within 1e-3 lambda_1); ``PHATE(random_state=0)``
+   on the 10,000 rows at its defaults (10-NN accuracy at least 0.9);
+9. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-9. with ``--profile`` only: device time by kernel and the device's idle
-   share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
-   and over 100 steps of each fit of phase 5 (torch.profiler).
+10. with ``--profile`` only: device time by kernel and the device's idle
+    share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
+    and over 100 steps of each fit of phase 5 (torch.profiler).
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
 kernel in one call. With ``--gather`` it builds the gathers alone and runs
 phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
-runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone.
-Each of these prints no result line.
+runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone;
+with ``--spectral``, phase 8 alone. Each of these prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -106,6 +120,24 @@ K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2
 N_IVF, D_IVF, IVF_DECAY, IVF_K, IVF_NPROBE = 1_300_000, 50, 1.0, 30, 16
 IVF_EVAL_ROWS, IVF_RECALL_MIN = 2_000, 0.95
 K1_SFU_CALLS = 2.5  # per pair, as K1 is built: lg2, ex2, and one reciprocal for two pairs
+# The spectral phase. IncrementalPCA is approximate: each update keeps k
+# components of the augmented matrix. At k = 2 the first two of the rows' 49
+# between-cluster directions (eigenvalues 383.9, 368.6, 358.0, 355.4) are
+# too close for that: it captures 1.42 % less variance than PCA, as
+# sklearn's IncrementalPCA does on the same rows (1e-8 from the port, on the
+# CPU). At k = 50, the 49 directions and one of noise, it is within 1e-5, so
+# both incremental PCAs are held to PCA there; k = 2 is reported beside it.
+IPCA_K = 50
+CAPTURED_TOL = 1e-4  # |captured - PCA's| / PCA's
+# KernelPCA's LOBPCG stops, as in the JAX package, when every pair's residual
+# is below 10 n eps (|AX| + theta): 0.0119 at n = 10,000 and 0.0715 at
+# 60,000, so the near-degenerate top pairs of these 50 clusters stop far from
+# converged (on 5,000 rows of this generator: lambda_2 8.9e-4 lambda_1 from
+# eigh's, residual 1.0e-2 lambda_1, on the CPU). The fits set a relative
+# residual tolerance instead; the default is run and reported at 10,000.
+KPCA_TOL = 1e-4
+KPCA_EIG_TOL = 1e-4  # |LOBPCG - eigh| / lambda_1 on the top two eigenvalues
+KPCA_RESID_TOL = 1e-3  # |HKHv - lambda v| / lambda_1
 S_MAIN = 512  # shared negatives of the UMAP path at n = 60k
 # K1 is held to a float64 evaluation of its function (the plain version on
 # double tensors) and to the plain version:
@@ -846,10 +878,156 @@ def run_ne_path(torch, counters, X, labels) -> list:
     return fits
 
 
-def run_fit(torch, model, X, labels, counters, expect) -> dict:
+def median_sq_distance(torch, X, rows: int = 2000, seed: int = SEED, device="cuda") -> float:
+    """Median squared distance between ``rows`` seeded rows of X."""
+    g = torch.Generator()
+    g.manual_seed(seed)
+    rows = min(rows, X.shape[0])
+    Xs = torch.from_numpy(X)[torch.randperm(X.shape[0], generator=g)[:rows]].to(device).double()
+    D = torch.cdist(Xs, Xs) ** 2
+    i, j = torch.triu_indices(rows, rows, 1, device=D.device)
+    return float(torch.median(D[i, j]))
+
+
+def svd_drivers(torch, A, k: int) -> dict:
+    """cuSOLVER's SVD drivers on one IncrementalPCA update of A's shape (its
+    first batch and the k + 1 rows an update adds): time (median of 5),
+    orthonormality of the top k right singular vectors, singular values
+    against float64. The port takes "gesvd" (ops/reductions.svd)."""
+    A = torch.from_numpy(A - A.mean(0)).cuda()
+    exact = torch.linalg.svdvals(A.double())
+    rec = {"shape": list(A.shape)}
+    for driver in ("gesvdj", "gesvd"):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, S, Vt = torch.linalg.svd(A, full_matrices=False, driver=driver)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        eye = torch.eye(k, device=A.device)
+        rec[driver] = {
+            "ms": float(np.median(times)) * 1e3,
+            "orthonormality": float((Vt[:k] @ Vt[:k].T - eye).abs().max()),
+            "sv_rel_err": float(((S.double() - exact) / exact[0]).abs().max()),
+        }
+    print("svd " + json.dumps(rec), flush=True)
+    return rec
+
+
+def run_spectral_path(torch, counters, X, labels) -> dict:
+    """Phase 8: IncrementalPCA and ExactIncrementalPCA on the 60,000 x 784
+    rows against PCA, KernelPCA's three solvers on 10,000 x 784 rows and its
+    matrix-free LOBPCG on the 60,000, and PHATE on the 10,000 at its defaults,
+    each with every launch counter read (none has a kernel: all must read 0)
+    and the port's eval scores of its embedding."""
+    from torchdr_tpu_torch import (
+        PCA, PHATE, ExactIncrementalPCA, IncrementalPCA, KernelPCA,
+        NormalizedGaussianAffinity, SelfTuningAffinity,
+    )
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.models.spectral.kernel_pca import _SHIFT
+
+    def fit(model, data, y, min_acc=None):
+        return run_fit(torch, model, data, y, counters, expect=(), min_acc=min_acc, scores=True)
+
+    out = {"svd": svd_drivers(torch, X[: 5 * D_IN + IPCA_K + 1], IPCA_K)}
+    # captured variance tr(V^T C V) of each model's components, against the
+    # port's PCA at the same k, C the float64 covariance of the rows
+    Xd = torch.from_numpy(X).cuda().double()
+    Xd -= Xd.mean(0, keepdim=True)
+    cov = Xd.T @ Xd / X.shape[0]
+    del Xd
+    for k in (IPCA_K, 2):
+        pca = PCA(n_components=k, device="auto")
+        pca.fit_transform(X)
+        ref = float(torch.trace(pca.components_.double() @ cov @ pca.components_.double().T))
+        models = [IncrementalPCA(n_components=k, device="auto")]
+        if k == IPCA_K:
+            models.append(ExactIncrementalPCA(n_components=k, device="auto"))
+        for model in models:
+            rec = fit(model, X, labels)
+            V = model.components_.double()
+            rec["captured_rel_to_pca"] = (float(torch.trace(V @ cov @ V.T)) - ref) / ref
+            print(f"captured {type(model).__name__} k={k} " + json.dumps(rec), flush=True)
+            out[f"{type(model).__name__}_k{k}"] = rec
+            if k == IPCA_K and not abs(rec["captured_rel_to_pca"]) <= CAPTURED_TOL:
+                raise AssertionError(f"{type(model).__name__}: captured variance "
+                                     f"{rec['captured_rel_to_pca']} from PCA's")
+    del cov
+
+    # KernelPCA on 10,000 rows. The default sigma = 1 makes exp(-C) ~ I on
+    # these rows (squared distances ~1,500 within a cluster, ~27,000
+    # between), so the kernel is taken at the median squared distance
+    X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    sigma10 = median_sq_distance(torch, X10)
+    # SelfTuningAffinity on squared distances divides them by a product of
+    # two squared distances (~2e6 here): its kernel is ~11^T - I, whose
+    # centred top eigenvalue is 0, so its LOBPCG is reported, not gated
+    runs = (
+        ("gaussian", lambda: NormalizedGaussianAffinity(
+            sigma=sigma10, normalization_dim=None, device="auto"), (KPCA_TOL, None)),
+        ("self_tuning", lambda: SelfTuningAffinity(normalization_dim=None, device="auto"),
+         (None,)),
+    )
+    for kind, aff, tols in runs:
+        ref = KernelPCA(affinity=aff(), solver="eigh", device="auto")
+        out[f"kpca_{kind}_eigh"] = fit(ref, X10, labels10)
+        lam = ref.eigenvalues_[:2]
+        for tol in tols:
+            model = KernelPCA(affinity=aff(), solver="lobpcg", random_state=0, tol=tol,
+                              device="auto")
+            rec = fit(model, X10, labels10)
+            gap = float(torch.max(torch.abs(model.eigenvalues_[:2] - lam)))
+            rec.update({
+                "lobpcg_iterations": model.lobpcg_iterations_,
+                "eigenvalues": model.eigenvalues_.tolist(), "eigh_eigenvalues": lam.tolist(),
+                "eig_gap_rel_to_lambda1": gap / abs(float(lam[0])),
+            })
+            print(f"kpca {kind} tol={tol} " + json.dumps(rec), flush=True)
+            out[f"kpca_{kind}_lobpcg_tol{tol}"] = rec
+            if kind == "gaussian" and tol is not None and not gap <= KPCA_EIG_TOL * float(lam[0]):
+                raise AssertionError(f"KernelPCA {kind}: LOBPCG eigenvalues {gap} from eigh's")
+
+    # the matrix-free LOBPCG on the 60,000 rows, and one more streamed
+    # product for each pair's residual |HKHv - lambda v|
+    sigma = median_sq_distance(torch, X)
+    model = KernelPCA(affinity=NormalizedGaussianAffinity(sigma=sigma, normalization_dim=None,
+                                                          device="auto"),
+                      solver="lobpcg", random_state=0, tol=KPCA_TOL, device="auto")
+    rec = fit(model, X, labels)
+    matvec, _ = model._matfree_operator(torch.from_numpy(X).cuda(), model._kernel_block_fn())
+    V, lam = model.eigenvectors_, model.eigenvalues_[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    HKHV = matvec(V) - _SHIFT * V
+    torch.cuda.synchronize()
+    resid = torch.linalg.vector_norm(HKHV - V * lam[None, :], dim=0)
+    it = model.lobpcg_iterations_
+    bodies = min(200, -(-max(it, 1) // 8) * 8)  # the loop reads its stop flag every 8
+    rec.update({
+        "sigma": sigma, "lobpcg_iterations": it, "loop_bodies_run": bodies,
+        "matvecs": 2 + 2 * bodies, "matvec_s": time.perf_counter() - t0,
+        "eigenvalues": lam.tolist(), "residual_rel_to_lambda1": (resid / lam[0]).tolist(),
+    })
+    print("kpca matrix-free " + json.dumps(rec), flush=True)
+    out["kpca_matfree_60k"] = rec
+    if not float(resid.max()) <= KPCA_RESID_TOL * float(lam[0]):
+        raise AssertionError(f"KernelPCA matrix-free: residuals {resid.tolist()} > "
+                             f"{KPCA_RESID_TOL} lambda_1")
+    del model, matvec, V, HKHV
+    torch.cuda.empty_cache()
+
+    out["phate"] = fit(PHATE(random_state=0, device="auto"), X10, labels10, min_acc=0.9)
+    return out
+
+
+def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
-    once per step and the others not at all, or on a bad embedding."""
+    once per step and the others not at all, on a bad embedding, or below
+    ``min_acc`` 10-NN label accuracy (None: no gate). ``scores`` adds the
+    port's own eval scores of the embedding."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -860,30 +1038,52 @@ def run_fit(torch, model, X, labels, counters, expect) -> dict:
     launches = {fn.__name__: fn.launches for fn in counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     name = type(model).__name__
-    if Z.shape != (X.shape[0], 2) or not np.all(np.isfinite(Z)):
+    if Z.shape != (X.shape[0], model.n_components) or not np.all(np.isfinite(Z)):
         raise AssertionError(f"{name}: embedding has shape {Z.shape} or non-finite values")
     for fn_name, count in launches.items():
         want = model.n_iter_ if fn_name in expect else 0
         if count != want or (fn_name in expect and count == 0):
             raise AssertionError(f"{name}: {fn_name} launched {count} times in {model.n_iter_} steps")
     Zt = torch.from_numpy(Z).cuda()
-    acc = knn_label_accuracy(torch, Zt, torch.from_numpy(labels).cuda())
+    yt = torch.from_numpy(labels).cuda()
+    acc = knn_label_accuracy(torch, Zt, yt)
     fit = {
-        "model": name, "n": X.shape[0], "d": X.shape[1], "steps": model.n_iter_,
-        "wall_s": wall, "phases_s": model.timings_, "peak_mem_gb": peak_gb,
+        "model": name, "n": X.shape[0], "d": X.shape[1], "steps": getattr(model, "n_iter_", None),
+        "wall_s": wall, "phases_s": getattr(model, "timings_", None), "peak_mem_gb": peak_gb,
         "launches": launches, "knn10_label_acc": acc,
     }
+    if scores:
+        fit.update(eval_scores(torch, Zt, yt))
     print("fit " + json.dumps(fit), flush=True)
-    if acc < 0.9:
-        raise AssertionError(f"{name}: 10-NN label accuracy {acc} < 0.9")
+    if min_acc is not None and acc < min_acc:
+        raise AssertionError(f"{name}: 10-NN label accuracy {acc} < {min_acc}")
     return fit
+
+
+def subsample(torch, n: int, device, n_sub: int = 10_000, seed: int = 0):
+    """The rows that the accuracy is read on."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randperm(n, generator=g, device=device)[:n_sub]
+
+
+def eval_scores(torch, Z, labels) -> dict:
+    """The port's eval of an embedding: its mean 10-NN label agreement on
+    the rows of ``knn_label_accuracy``, the silhouette of all rows and the
+    ARI of 50-means."""
+    from torchdr_tpu_torch.eval import kmeans_ari, knn_label_accuracy as eval_knn, silhouette_score
+
+    idx = subsample(torch, Z.shape[0], Z.device)
+    return {
+        "eval_knn10_label_acc": eval_knn(Z[idx], labels[idx], k=10, device=Z.device),
+        "silhouette": silhouette_score(Z, labels, device=Z.device),
+        "kmeans_ari": kmeans_ari(Z, labels, random_state=0, device=Z.device)[0],
+    }
 
 
 def knn_label_accuracy(torch, Z, labels, n_sub: int = 10_000, k: int = 10, seed: int = 0):
     """10-NN majority-label accuracy of the embedding on a row subsample."""
-    g = torch.Generator(device=Z.device)
-    g.manual_seed(seed)
-    idx = torch.randperm(Z.shape[0], generator=g, device=Z.device)[:n_sub]
+    idx = subsample(torch, Z.shape[0], Z.device, n_sub, seed)
     Zs, ys = Z[idx], labels[idx]
     D = torch.cdist(Zs, Zs)
     D.fill_diagonal_(float("inf"))
@@ -976,9 +1176,10 @@ def main() -> int:
     gather_only = "--gather" in sys.argv[1:]
     ivf_only = "--ivf" in sys.argv[1:]
     ne_only = "--ne" in sys.argv[1:]
+    spectral_only = "--spectral" in sys.argv[1:]
     t0 = time.perf_counter()
-    if ne_only:
-        libs = []  # phase 5 launches no kernel
+    if ne_only or spectral_only:
+        libs = []  # phases 5 and 8 launch no kernel
     elif k1_only or gather_only or ivf_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
@@ -999,6 +1200,10 @@ def main() -> int:
     X, labels = make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
     if ne_only:
         run_ne_path(torch, counters, X, labels)
+        print(smi, flush=True)
+        return 0
+    if spectral_only:
+        run_spectral_path(torch, counters, X, labels)
         print(smi, flush=True)
         return 0
 
@@ -1035,6 +1240,9 @@ def main() -> int:
 
     # 7. the gathers and the attraction-gather microbenchmark
     gathers = run_gather_path(torch, counters, check_gather(torch))
+
+    # 8. the spectral estimators: incremental PCAs, KernelPCA, PHATE
+    run_spectral_path(torch, counters, X, labels)
 
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn

@@ -757,3 +757,100 @@ def test_ne_fit_on_the_card_launches_no_kernel(cuda, name):
     Z = model.fit_transform(_ne_data(n=1500))
     assert model.n_iter_ > 0 and Z.shape == (1500, 2) and np.all(np.isfinite(Z))
     assert {fn.__name__: fn.launches for fn in counters} == {fn.__name__: 0 for fn in counters}
+
+
+def _spectral_data(n=600, d=12, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=4.0, size=(6, d))
+    return (centers[rng.integers(0, 6, n)] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["IncrementalPCA", "ExactIncrementalPCA"])
+def test_incremental_pca_on_the_card_equals_the_cpu(cuda, name):
+    """Components up to sign and projections at 1e-5 of the largest entry,
+    the CPU tests' tolerance; the card's SVD is cuSOLVER's ``gesvd``."""
+    import torchdr_tpu_torch as tdt
+
+    X = _spectral_data()
+    cpu = getattr(tdt, name)(n_components=4, batch_size=100, device="cpu")
+    card = getattr(tdt, name)(n_components=4, batch_size=100, device=cuda.type)
+    want = cpu.fit_transform(X)
+    got = card.fit_transform(torch.from_numpy(X).to(cuda))
+    assert got.is_cuda and card.components_.is_cuda
+    signs = torch.sign(torch.sum(card.components_.cpu() * cpu.components_, dim=1))
+    assert float((card.components_.cpu() * signs[:, None] - cpu.components_).abs().max()) <= 1e-5
+    scale = float(np.abs(want).max())
+    assert float((got.cpu() * signs[None, :] - torch.from_numpy(want)).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["eigh", "lobpcg-matrix-free", "lobpcg-dense"])
+def test_kernel_pca_on_the_card_equals_the_cpu(cuda, solver):
+    """Eigenvalues at 1e-5 of λ₁ from the same LOBPCG start, the same
+    iteration count (1 apart at most: the card's products round otherwise)."""
+    from torchdr_tpu_torch import KernelPCA, NormalizedGaussianAffinity, SelfTuningAffinity
+
+    X = _spectral_data(n=800)
+
+    def make(dev):
+        aff = (SelfTuningAffinity(normalization_dim=None, device=dev) if solver == "lobpcg-dense"
+               else NormalizedGaussianAffinity(sigma=100.0, normalization_dim=None, device=dev))
+        return KernelPCA(affinity=aff, solver=solver.split("-")[0], random_state=0, device=dev)
+
+    X0 = torch.from_numpy(np.random.default_rng(1).normal(size=(800, 2)).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda):
+        m = make(torch.device(dev).type)
+        Xd = torch.from_numpy(X).to(dev)
+        if solver == "eigh":
+            m.fit_transform(Xd)
+            lam = m.eigenvalues_[:2]
+        elif solver == "lobpcg-dense":
+            lam, _ = m._lobpcg_dense(m.affinity(Xd), X0=X0.to(dev))
+        else:
+            lam, _ = m._lobpcg_matfree(Xd, m._kernel_block_fn(), X0=X0.to(dev))
+        out.append((lam.cpu(), m.lobpcg_iterations_ if solver != "eigh" else 0))
+    (lc, ic), (lg, ig) = out
+    assert float((lg - lc).abs().max()) <= 1e-5 * float(lc[0]) and abs(ig - ic) <= 1
+
+
+@pytest.mark.cuda
+def test_phate_and_affinities_on_the_card_equal_the_cpu(cuda):
+    """The three affinities at the CPU tests' tolerances, and a PHATE fit
+    (60 steps) launching no kernel."""
+    from torchdr_tpu_torch import PHATE, MAGICAffinity, PHATEAffinity, SelfTuningAffinity
+
+    X = _spectral_data(n=300)
+    for make, tol in ((lambda d: SelfTuningAffinity(device=d), 5e-6),
+                      (lambda d: MAGICAffinity(device=d), 5e-6),
+                      (lambda d: PHATEAffinity(t=20, device=d), None)):
+        want = make("cpu")(X)
+        got = make(cuda.type)(torch.from_numpy(X).to(cuda)).cpu()
+        tol = 1e-3 * float(want.abs().max()) if tol is None else tol
+        assert float((got - want).abs().max()) <= tol
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, bucket_take, bucket_onehot,
+                bucket_2level)
+    for fn in counters:
+        fn.launches = 0
+    Z = PHATE(t=20, max_iter=60, random_state=0, device=cuda.type).fit_transform(X)
+    assert Z.shape == (300, 2) and np.all(np.isfinite(Z))
+    assert all(fn.launches == 0 for fn in counters)
+
+
+@pytest.mark.cuda
+def test_eval_on_the_card_equals_the_cpu(cuda):
+    from torchdr_tpu_torch import eval as teval
+
+    X = _spectral_data(n=500)
+    y = np.random.default_rng(2).integers(0, 6, 500)
+    Z = X[:, :2].copy()
+    for fn in (lambda d: teval.knn_label_accuracy(X, y, device=d),
+               lambda d: teval.neighborhood_preservation(X, Z, K=10, device=d),
+               lambda d: teval.neighborhood_preservation_sampled(X, Z, K=10, n_queries=100,
+                                                                 device=d)):
+        assert fn(cuda.type) == pytest.approx(fn("cpu"), abs=1e-6)
+    assert teval.silhouette_score(X, y, device=cuda.type) == pytest.approx(
+        teval.silhouette_score(X, y, device="cpu"), abs=1e-5)
+    ari, pred = teval.kmeans_ari(X, y, random_state=0, device=cuda.type)
+    assert np.isfinite(ari) and pred.shape == (500,)

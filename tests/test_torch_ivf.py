@@ -356,6 +356,16 @@ def test_index_from_numpy_round_trip(searched):
     assert tindex.ids_sorted.dtype == torch.int32 and tindex.centroids.dtype == torch.float32
 
 
+def test_index_from_numpy_defaults_to_the_card(searched):
+    """Like every entry point, ``index_from_numpy`` runs on the card unless
+    told otherwise: with no device given it raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device='auto' resolves to it")
+    _, jindex, _ = searched
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tivf.index_from_numpy(jindex)
+
+
 def test_auto_nlist_and_balance_allocate_match_jax():
     for n in (100, 6000, 100_000, 1_300_000, 10**8):
         assert tivf.auto_nlist(n) == jivf.auto_nlist(n)

@@ -515,7 +515,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert ROOT / "torchdr_tpu_torch" / "benchmarks" / "gather_microbench.py" in files
     for new in ("ops/ivf.py", "ops/kmeans.py", "benchmarks/ivf_recall.py", "affinity/quadratic.py",
                 "models/neighbor/largevis.py", "models/neighbor/pacmap.py",
-                "models/neighbor/tsnekhorn.py"):
+                "models/neighbor/tsnekhorn.py", "utils/lobpcg.py",
+                "models/spectral/kernel_pca.py", "models/spectral/incremental_pca.py",
+                "models/spectral/phate.py", "eval/__init__.py", "eval/knn_metrics.py",
+                "eval/silhouette.py", "eval/kmeans_ari.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:

@@ -22,15 +22,34 @@ torch.backends.cudnn.allow_tf32 = False
 from .affinity import (  # noqa: E402
     DoublyStochasticQuadraticAffinity,
     EntropicAffinity,
+    MAGICAffinity,
     NormalizedGaussianAffinity,
     NormalizedStudentAffinity,
     PACMAPAffinity,
+    PHATEAffinity,
+    SelfTuningAffinity,
     SinkhornAffinity,
     SymmetricEntropicAffinity,
     UMAPAffinity,
 )
+from .eval import (  # noqa: E402
+    adjusted_rand_index,
+    kmeans_ari,
+    knn_label_accuracy,
+    knn_recall,
+    neighborhood_preservation,
+    neighborhood_preservation_sampled,
+    silhouette_samples,
+    silhouette_score,
+)
 from .models.neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn  # noqa: E402
-from .models.spectral import PCA  # noqa: E402
+from .models.spectral import (  # noqa: E402
+    PCA,
+    PHATE,
+    ExactIncrementalPCA,
+    IncrementalPCA,
+    KernelPCA,
+)
 from .ops.distance import knn_graph, knn_graph_host_chunked, pairwise_distances  # noqa: E402
 from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
 from .ops.kmeans import kmeans_fit  # noqa: E402
@@ -44,15 +63,30 @@ __all__ = [
     "InfoTSNE",
     "TSNEkhorn",
     "PACMAP",
+    "PCA",
+    "IncrementalPCA",
+    "ExactIncrementalPCA",
+    "KernelPCA",
+    "PHATE",
     "EntropicAffinity",
     "NormalizedGaussianAffinity",
     "NormalizedStudentAffinity",
     "SinkhornAffinity",
     "SymmetricEntropicAffinity",
     "DoublyStochasticQuadraticAffinity",
+    "MAGICAffinity",
     "PACMAPAffinity",
+    "PHATEAffinity",
+    "SelfTuningAffinity",
     "UMAPAffinity",
-    "PCA",
+    "adjusted_rand_index",
+    "kmeans_ari",
+    "knn_label_accuracy",
+    "knn_recall",
+    "neighborhood_preservation",
+    "neighborhood_preservation_sampled",
+    "silhouette_samples",
+    "silhouette_score",
     "knn_graph",
     "knn_graph_host_chunked",
     "pairwise_distances",

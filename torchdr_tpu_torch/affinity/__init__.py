@@ -8,7 +8,13 @@ from .entropic import (
     SinkhornAffinity,
     SymmetricEntropicAffinity,
 )
-from .knn_normalized import PACMAPAffinity, UMAPAffinity
+from .knn_normalized import (
+    MAGICAffinity,
+    PACMAPAffinity,
+    PHATEAffinity,
+    SelfTuningAffinity,
+    UMAPAffinity,
+)
 from .quadratic import DoublyStochasticQuadraticAffinity
 
 __all__ = [
@@ -22,6 +28,9 @@ __all__ = [
     "SinkhornAffinity",
     "SymmetricEntropicAffinity",
     "DoublyStochasticQuadraticAffinity",
+    "MAGICAffinity",
     "PACMAPAffinity",
+    "PHATEAffinity",
+    "SelfTuningAffinity",
     "UMAPAffinity",
 ]

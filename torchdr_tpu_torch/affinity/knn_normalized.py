@@ -1,19 +1,129 @@
 """Affinities normalized by nearest-neighbor distances.
 
-Counterpart of ``torchdr_tpu/affinity/knn_normalized.py``; the port
-carries :class:`UMAPAffinity` (fuzzy simplicial set) with its calibration,
-and :class:`PACMAPAffinity` (PACMAP's neighbour selection). The
-self-tuning, MAGIC and PHATE affinities wait for a later slice.
+Counterpart of ``torchdr_tpu/affinity/knn_normalized.py``: the dense
+self-tuning, MAGIC and PHATE affinities, :class:`UMAPAffinity` (fuzzy
+simplicial set) with its calibration, and :class:`PACMAPAffinity`
+(PACMAP's neighbour selection).
 """
 
 from __future__ import annotations
 
+from typing import Tuple, Union
+
 import torch
 
+from ..ops.distance import pairwise_distances
+from ..ops.reductions import matrix_power
 from ..ops.root_search import binary_search
 from ..ops.sparse import symmetrize_sparse
 from ..utils.validation import check_neighbor_param
-from .base import SparseAffinity
+from .base import Affinity, LogAffinity, SparseAffinity
+
+
+def _kth_smallest(C: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th smallest entry of each row (the diagonal included)."""
+    return torch.topk(C, k, dim=1, largest=False, sorted=True).values[:, -1]
+
+
+class SelfTuningAffinity(LogAffinity):
+    r"""Self-tuning affinity (Zelnik-Manor & Perona 2004):
+    exp(-C_ij / (σ_i σ_j)) with σ_i the K-th smallest distance of row i,
+    optionally normalized along ``normalization_dim``."""
+
+    def __init__(
+        self,
+        K: int = 7,
+        normalization_dim: Union[int, Tuple[int, ...], None] = (0, 1),
+        metric: str = "sqeuclidean",
+        zero_diag: bool = True,
+        device: str = "auto",
+        verbose: bool = False,
+        **kwargs,
+    ):
+        super().__init__(
+            metric=metric, zero_diag=zero_diag, device=device, verbose=verbose, **kwargs
+        )
+        self.K = K
+        self.normalization_dim = normalization_dim
+
+    def _compute_log_affinity(self, X: torch.Tensor):
+        C = self._distance_matrix(X)
+        kth = _kth_smallest(C, self.K)
+        self.sigma_ = kth
+        log_aff = -C / (kth[:, None] * kth[None, :])
+        if self.normalization_dim is not None:
+            log_aff = log_aff - torch.logsumexp(
+                log_aff, dim=self.normalization_dim, keepdim=True
+            )
+        return log_aff
+
+
+class MAGICAffinity(Affinity):
+    r"""MAGIC affinity (van Dijk et al. 2018): exp(-C/σ_i), symmetrized by
+    the mean, then row-normalized (a diffusion operator, not symmetric)."""
+
+    def __init__(
+        self,
+        K: int = 7,
+        metric: str = "sqeuclidean",
+        zero_diag: bool = True,
+        device: str = "auto",
+        verbose: bool = False,
+        **kwargs,
+    ):
+        super().__init__(
+            metric=metric, zero_diag=zero_diag, device=device, verbose=verbose, **kwargs
+        )
+        self.K = K
+
+    def _compute_affinity(self, X: torch.Tensor):
+        C = self._distance_matrix(X)
+        kth = _kth_smallest(C, self.K)
+        self.sigma_ = kth
+        P = torch.exp(-C / kth[:, None])
+        P = 0.5 * (P + P.T)
+        return P / torch.sum(P, dim=1, keepdim=True)
+
+
+class PHATEAffinity(Affinity):
+    r"""PHATE potential affinity (Moon et al. 2019).
+
+    α-decay kernel, symmetrized and row-normalized, diffused t steps
+    (:func:`matrix_power`), then the negative Euclidean distances between
+    the rows of the potential -log P. The potential is kept in float32, as
+    in the JAX package: each column is centred before the distances, which
+    removes the common mode that would cancel in the norms-plus-gram form.
+    """
+
+    def __init__(
+        self,
+        metric: str = "euclidean",
+        device: str = "auto",
+        verbose: bool = False,
+        k: int = 5,
+        alpha: float = 10.0,
+        t: int = 5,
+        **kwargs,
+    ):
+        super().__init__(
+            metric=metric, zero_diag=False, device=device, verbose=verbose, **kwargs
+        )
+        self.k = k
+        self.alpha = alpha
+        self.t = t
+
+    def _compute_affinity(self, X: torch.Tensor):
+        C = self._distance_matrix(X)
+        kth = _kth_smallest(C, self.k)
+        self.sigma_ = kth
+        P = torch.exp(-((C / kth[:, None]) ** self.alpha))
+        P = 0.5 * (P + P.T)
+        P = P / torch.sum(P, dim=1, keepdim=True)
+        P = matrix_power(P, self.t)
+        logP = -torch.log(torch.clamp(P, min=1e-12))
+        logP = logP - torch.mean(logP, dim=0, keepdim=True)
+        D, _ = pairwise_distances(logP, metric="euclidean")
+        return -D
 
 
 class UMAPAffinity(SparseAffinity):

@@ -1,6 +1,9 @@
 """Estimators."""
 
 from .neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn
-from .spectral import PCA
+from .spectral import PCA, PHATE, ExactIncrementalPCA, IncrementalPCA, KernelPCA
 
-__all__ = ["SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP", "PCA"]
+__all__ = [
+    "SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP",
+    "PCA", "IncrementalPCA", "ExactIncrementalPCA", "KernelPCA", "PHATE",
+]

@@ -1,3 +1,6 @@
+from .incremental_pca import ExactIncrementalPCA, IncrementalPCA
+from .kernel_pca import KernelPCA
 from .pca import PCA
+from .phate import PHATE
 
-__all__ = ["PCA"]
+__all__ = ["PCA", "IncrementalPCA", "ExactIncrementalPCA", "KernelPCA", "PHATE"]

@@ -413,12 +413,14 @@ def ivf_build(
     )
 
 
-def index_from_numpy(fields: Union[Mapping, NamedTuple], device="cpu") -> IVFIndex:
-    """An :class:`IVFIndex` on ``device`` from the fields of an index given
-    as arrays (a mapping, or a ``NamedTuple`` such as the JAX package's
-    ``IVFIndex``): float fields become float32 tensors, integer fields
-    int32, ``chunk`` and ``n`` ints. Anything ``np.asarray`` reads is
-    taken; storage tiers other than float32 raise."""
+def index_from_numpy(fields: Union[Mapping, NamedTuple], device="auto") -> IVFIndex:
+    """An :class:`IVFIndex` on ``device`` ("auto": the card, raising without
+    one) from the fields of an index given as arrays (a mapping, or a
+    ``NamedTuple`` such as the JAX package's ``IVFIndex``): float fields
+    become float32 tensors, integer fields int32, ``chunk`` and ``n`` ints.
+    Anything ``np.asarray`` reads is taken; storage tiers other than float32
+    raise."""
+    device = resolve_device(device)
     fields = dict(fields._asdict() if hasattr(fields, "_asdict") else fields)
     for name in ("X_lo", "xnorm2", "scales"):
         if fields.get(name) is not None:

@@ -48,8 +48,13 @@ def _plus_plus_init(X: torch.Tensor, n_clusters: int, generator: torch.Generator
     centers = torch.zeros((n_clusters, X.shape[1]), dtype=X.dtype, device=X.device)
     centers[0] = X[first]
     d2 = torch.sum((X - X[first]) ** 2, dim=1)
+    # fewer distinct rows than clusters leave every d2 at 0: then the JAX
+    # package's draw (a search in the cumulative sum) takes row 0
+    row0 = torch.zeros_like(d2)
+    row0[0] = 1.0
     for i in range(1, n_clusters):
-        probs = d2 / torch.clamp(torch.sum(d2), min=1e-12)
+        total = torch.sum(d2)
+        probs = torch.where(total > 0, d2 / torch.clamp(total, min=1e-12), row0)
         idx = torch.multinomial(probs, 1, generator=generator)
         centers[i] = X[idx[0]]
         d2 = torch.minimum(d2, torch.sum((X - X[idx]) ** 2, dim=1))

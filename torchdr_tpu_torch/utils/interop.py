@@ -2,8 +2,12 @@
 
 :func:`load_reference_state` takes the state the JAX estimator computed
 before its optimization loop, as numpy arrays, and installs it in the
-port's estimator, so both continue from identical state. The port never
-imports JAX: the caller extracts the arrays (``np.asarray(...)``).
+port's estimator, so both continue from identical state;
+:func:`load_incremental_pca_state` does the same for a fitted
+``IncrementalPCA`` or ``ExactIncrementalPCA``, so that a port
+``partial_fit`` or ``transform`` continues from the JAX package's fit.
+The port never imports JAX: the caller extracts the arrays
+(``np.asarray(...)``).
 """
 
 from __future__ import annotations
@@ -59,3 +63,29 @@ def load_reference_state(estimator, arrays: Mapping[str, object]) -> None:
             setattr(estimator, f"_{key}", float(arrays[key]))
     estimator.n_samples_in_ = int(np.asarray(arrays["init_embedding"]).shape[0])
     estimator._generator_ = estimator._root_generator()
+
+
+def load_incremental_pca_state(estimator, arrays: Mapping[str, object]) -> None:
+    """Install a fitted incremental PCA state in ``estimator``.
+
+    ``arrays`` holds "mean_", "components_", "explained_variance_" and
+    "n_samples_seen_", and for ``IncrementalPCA`` also "var_" and
+    "singular_values_". The host Welford state of ``IncrementalPCA``
+    (``mean_``, ``var_``) stays a float64 numpy array; everything else
+    becomes a float32 tensor on the estimator's device, as a fit leaves it.
+    """
+    device = resolve_device(estimator.device)
+    estimator.device_ = device
+
+    def dev(key):
+        arr = np.ascontiguousarray(np.asarray(arrays[key], np.float32))
+        return torch.from_numpy(arr).to(device)
+
+    host = ("mean_", "var_") if "var_" in arrays else ()
+    for key in ("mean_", "var_", "components_", "singular_values_", "explained_variance_"):
+        if key not in arrays:
+            continue
+        value = np.asarray(arrays[key], np.float64) if key in host else dev(key)
+        setattr(estimator, key, value)
+    estimator.n_samples_seen_ = int(arrays["n_samples_seen_"])
+    estimator.is_fitted_ = True
