@@ -56,11 +56,26 @@ Phases, in order; any failure exits non-zero:
    the 60,000 rows, with its iterations, one product's time and each pair's
    residual |HKHv - lambda v| (within 1e-3 lambda_1); ``PHATE(random_state=0)``
    on the 10,000 rows at its defaults (10-NN accuracy at least 0.9);
-9. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+9. mesh: on a 4-way mesh of the one card (``make_mesh(devices=["cuda:0"] *
+   4)``; a device may repeat in a mesh), the general K2 and K3 against
+   their plain versions on every shard of n = 10,000 (2,500 rows a shard),
+   10,001 (a padded last shard), d = 3, the underflowing gaussian grid and
+   n = 50,000, in both modes; the sharded row log-sum and its gradient
+   against the square kernels at n = 10,000 and 50,000; the general
+   kernels' times on one shard (eager and replayed from a CUDA graph) and
+   one sharded step beside one square step; then ``TSNE(random_state=0,
+   mesh=M4)`` and ``SNE(random_state=0, lr=n/12, mesh=M4)`` on the 10,000
+   rows (the general kernels launched 4 times a step, the square ones
+   never; the input affinity equal to the one without the mesh) and
+   ``UMAP(random_state=0, mesh=M4)`` on the 60,000 rows (the symmetrized
+   affinity equal to the one without the mesh; K1 once a step), each
+   beside its fit without the mesh; where more than one card is visible,
+   the t-SNE fit on a mesh of the real cards;
+10. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-10. with ``--profile`` only: device time by kernel and the device's idle
+11. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
     and over 100 steps of each fit of phase 5 (torch.profiler).
 
@@ -69,7 +84,9 @@ With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 kernel in one call. With ``--gather`` it builds the gathers alone and runs
 phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
 runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone;
-with ``--spectral``, phase 8 alone. Each of these prints no result line.
+with ``--spectral``, phase 8 alone; with ``--mesh`` it builds K1, K2 and K3
+and runs phase 9 alone (with the three fits without a mesh beside it). Each
+of these prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -180,6 +197,25 @@ GATHER_EDGE_CASES = tuple(
 ) + tuple(("uniform", d, r, 40) for d in (1, 8) for r in (512, 2048))
 GATHER_CHUNK = 2048
 GATHER_REPEATS = 7  # eager, graph and library times: medians of alternating repeats
+# The mesh phase: a 4-way mesh of the one card (a device may repeat in a
+# mesh); the general K2 and K3 are held to their plain versions on each
+# shard's rows, at the shards of these (n, d, kernel) cases, and the sharded
+# row log-sum to the square kernels.
+MESH_WORLD = 4
+MESH_CASES = (
+    ("main d=2", N_TSNE, 2, "student"),
+    ("main d=2 gaussian", N_TSNE, 2, "gaussian"),
+    ("padded last shard", N_TSNE + 1, 2, "student"),
+    ("padded last shard gaussian", N_TSNE + 1, 2, "gaussian"),
+    ("d=3", N_TSNE, 3, "student"),
+    ("d=3 gaussian", N_TSNE, 3, "gaussian"),
+    ("large", N_LARGE, 2, "student"),
+    ("large gaussian", N_LARGE, 2, "gaussian"),
+)
+# The sharded input affinity against the single-device one: the same rows,
+# kNN blocks of other heights (another gram algorithm may round the last
+# bit), so the values are held to 1e-6 rather than bit for bit.
+MESH_AFFINITY_TOL = 1e-6
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # special-function unit (reciprocal, exp2): 16 results per clock per SM, 132
@@ -244,13 +280,16 @@ def sass_report(libraries) -> None:
         return any(w in mangled for w in widths)
 
     def label(mangled):
-        m = re.search(r"\d\d((?:rowlse|repulsion|bucket)\w*?kernel)ILi(\d)E(?:Lb([01]))?", mangled)
+        m = re.search(r"\d\d((?:rowlse|repulsion|bucket)\w*?kernel)ILi(\d)E(?:Lb([01])E)?"
+                      r"(?:Li(\d)E)?", mangled)
         if m is None:
             return mangled
         modes = {"rep": ("", ", masked"), "row": (", student", ", gaussian"),
                  "buc": (", k-steps walked", ", one k-step")}[m.group(1)[:3]]
         mode = "" if m.group(3) is None else modes[int(m.group(3))]
-        return f"{m.group(1)}<d={m.group(2)}{mode}>"
+        # K3's weights: both (square form), the row's (pass A), the column's (pass B)
+        sides = {None: "", "3": "", "1": ", pass A", "2": ", pass B"}[m.group(4)]
+        return f"{m.group(1)}<d={m.group(2)}{mode}{sides}>"
 
     for lib in libraries:
         print(f"== {lib.name}")
@@ -468,6 +507,266 @@ def sfu_floor_ms(n: int, which: str, kernel: str) -> float:
     counts unordered pairs at the float32 rate."""
     calls = {("K2", "student"): 0.5, ("K3", "gaussian"): 2.0}.get((which, kernel), 1.0)
     return n * n * calls / H100_SFU_PER_S * 1e3
+
+
+def rowlse_general_bound_ms(m: int, n: int, d: int, which: str, kernel: str) -> tuple:
+    """Least time for one shard's general K2 or K3 on an H100: m rows of
+    the shard against n columns. A pair with both ends in the shard is
+    symmetric and counted once, as in ``rowlse_bound_ms``; a pair (i, j)
+    with j outside it feeds row i only (K2: 3d + 2 operations, one add) or
+    is one-sided (K3: the weight of row i alone, 6d + 3, gaussian 6d + 2,
+    accumulated into dZq_i and dZdb_j). Bytes: Zq and Zdb read once (K3
+    also lse and g), the output written once (K3 both outputs)."""
+    inner, cross = m * (m - 1) // 2, m * (n - m)
+    if which == "K2":
+        bytes_moved = 4 * (m * d + n * d + m)
+        ops = inner * (3 * d + 3) + cross * (3 * d + 2) + m
+    else:
+        g = 1 if kernel == "gaussian" else 0
+        bytes_moved = 4 * (m * d + n * d + 2 * m + m * d + n * d)
+        ops = inner * (6 * d + 4 - g) + cross * (6 * d + 3 - g) + m * (d + 3)
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mesh_shards(torch, Z, world: int):
+    """(offset, padded row chunk) of each shard, as the sharded row log-sum
+    cuts Z: rows past n are zeros, which n_total masks."""
+    n, d = Z.shape
+    chunk = -(-n // world)
+    Zp = torch.zeros((chunk * world, d), dtype=Z.dtype, device=Z.device)
+    Zp[:n] = Z
+    return [(r * chunk, Zp[r * chunk : (r + 1) * chunk]) for r in range(world)]
+
+
+def check_general_k2_k3(torch, gen) -> dict:
+    """The general K2 and K3 against their plain versions on the card, on
+    every shard of MESH_CASES and of the underflowing gaussian grid; each
+    output within TOL_K2 / TOL_K3 as the square kernels are held."""
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+        rowlse_bwd_general,
+        rowlse_bwd_general_plain,
+        rowlse_fwd_general,
+        rowlse_fwd_general_plain,
+    )
+
+    dev = torch.device("cuda")
+    worst = {"K2": 0.0, "K3": 0.0}
+    g = torch.arange(64, device=dev, dtype=torch.float32) * 15.0
+    grid = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    grid = (grid + 0.01 * torch.rand(grid.shape, generator=gen, device=dev)).contiguous()
+    cases = [(label, (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous(), kernel)
+             for label, n, d, kernel in MESH_CASES]
+    cases.append(("underflowing gaussian", grid, "gaussian"))
+    for label, Z, kernel in cases:
+        n = Z.shape[0]
+        for off, Zq in mesh_shards(torch, Z, MESH_WORLD):
+            out = rowlse_fwd_general(Zq, Z, off, n, kernel)
+            ref = rowlse_fwd_general_plain(Zq, Z, off, n, kernel)
+            live = max(0, min(Zq.shape[0], n - off))
+            lse = ref.clone()
+            lse[live:] = 0.0
+            g_q = (torch.rand((Zq.shape[0],), generator=gen, device=dev) / n).contiguous()
+            g_q[live:] = 0.0
+            dZq, dZdb = rowlse_bwd_general(Zq, Z, off, n, lse, g_q, kernel)
+            rq, rdb = rowlse_bwd_general_plain(Zq, Z, off, n, lse, g_q, kernel)
+            torch.cuda.synchronize()
+            e2 = float((out[:live] - ref[:live]).abs().max())
+            lim2 = TOL_K2 * max(1.0, float(ref[:live].abs().max()))
+            e3 = max(float((dZq - rq).abs().max()), float((dZdb - rdb).abs().max()))
+            lim3 = TOL_K3 * max(float(rq.abs().max()), float(rdb.abs().max()))
+            masked = bool(torch.isneginf(out[live:]).all())
+            finite = bool(torch.isfinite(out[:live]).all() and torch.isfinite(dZq).all()
+                          and torch.isfinite(dZdb).all())
+            print(
+                f"general K2/K3 {label}: n={n} d={Z.shape[1]} {kernel} shard at {off} "
+                f"({live} of {Zq.shape[0]} rows live) max|K2-plain|={e2:.3e} (limit {lim2:.1e}) "
+                f"max|K3-plain|={e3:.3e} (limit {lim3:.1e})",
+                flush=True,
+            )
+            if not (finite and masked):
+                raise AssertionError(f"general K2/K3 {label} at {off}: non-finite or unmasked")
+            if not e2 <= lim2:
+                raise AssertionError(f"general K2 {label} at {off}: {e2} > {lim2}")
+            if not e3 <= lim3:
+                raise AssertionError(f"general K3 {label} at {off}: {e3} > {lim3}")
+            worst["K2"] = max(worst["K2"], e2)
+            worst["K3"] = max(worst["K3"], e3)
+    return worst
+
+
+def check_sharded_rowlse(torch, gen, mesh) -> None:
+    """The sharded row log-sum on ``mesh`` against the square kernels: the
+    values within TOL_K2 · max(1, |square|), the gradient of Σ sin(rowlse)
+    within TOL_K3 · max |square gradient|."""
+    from torchdr_tpu_torch.ops.reduce import (
+        pairwise_logkernel_rowlse,
+        pairwise_logkernel_rowlse_sharded,
+    )
+
+    for n in (N_TSNE, N_LARGE):
+        for kernel in ("student", "gaussian"):
+            Z = 5.0 * torch.randn((n, 2), generator=gen, device="cuda")
+            Za, Zb = Z.clone().requires_grad_(True), Z.clone().requires_grad_(True)
+            sq = pairwise_logkernel_rowlse(Za, kernel)
+            sh = pairwise_logkernel_rowlse_sharded(Zb, mesh, kernel)
+            torch.sin(sq).sum().backward()
+            torch.sin(sh).sum().backward()
+            sq, sh = sq.detach(), sh.detach()
+            e = float((sh - sq).abs().max())
+            lim = TOL_K2 * max(1.0, float(sq.abs().max()))
+            eg = float((Zb.grad - Za.grad).abs().max())
+            limg = TOL_K3 * float(Za.grad.abs().max())
+            print(f"sharded rowlse n={n} {kernel} on {len(mesh)} shards: max|sharded-square|="
+                  f"{e:.3e} (limit {lim:.1e}), gradient {eg:.3e} (limit {limg:.1e})", flush=True)
+            if not (e <= lim and eg <= limg):
+                raise AssertionError(f"sharded rowlse n={n} {kernel}: {e}, {eg}")
+
+
+def time_general_k2_k3(torch, gen, mesh, worst) -> dict:
+    """The general K2's and K3's times on one shard (the first, rows 0..m)
+    at the mesh's (m, n): eager over many calls and replayed from a CUDA
+    graph, with the plain version's time and the bound; then one step of the
+    sharded row log-sum (forward and backward) on the mesh beside one step
+    of the square one. Returns the ``general`` entries of K2 and K3."""
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+        rowlse_bwd_general,
+        rowlse_bwd_general_plain,
+        rowlse_fwd_general,
+        rowlse_fwd_general_plain,
+    )
+    from torchdr_tpu_torch.ops.reduce import (
+        pairwise_logkernel_rowlse,
+        pairwise_logkernel_rowlse_sharded,
+    )
+
+    d, general, times = 2, {"K2": [], "K3": []}, []
+    for n in (N_TSNE, N_LARGE):
+        for kernel in ("student", "gaussian"):
+            Z = (5.0 * torch.randn((n, d), generator=gen, device="cuda")).contiguous()
+            m = n // MESH_WORLD
+            Zq = Z[:m].contiguous()
+            lse = rowlse_fwd_general_plain(Zq, Z, 0, n, kernel)
+            g = (torch.rand((m,), generator=gen, device="cuda") / n).contiguous()
+            for which, fn, plain in (
+                ("K2", lambda: rowlse_fwd_general(Zq, Z, 0, n, kernel),
+                 lambda: rowlse_fwd_general_plain(Zq, Z, 0, n, kernel)),
+                ("K3", lambda: rowlse_bwd_general(Zq, Z, 0, n, lse, g, kernel),
+                 lambda: rowlse_bwd_general_plain(Zq, Z, 0, n, lse, g, kernel)),
+            ):
+                ms = cuda_time_ms(fn, reps=100 if n == N_TSNE else 20)
+                device_ms = graph_ms(fn)
+                plain_ms = cuda_time_ms(plain, reps=3 if n == N_TSNE else 1)
+                bound_ms, bound_by = rowlse_general_bound_ms(m, n, d, which, kernel)
+                print(f"general {which} time shard ({m} x {n}) d={d} {kernel}: kernel {ms:.4f} ms "
+                      f"({device_ms:.4f} ms replayed), plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+                entry = {"kernel": which, "m": m, "n": n, "d": d, "mode": kernel, "ms": ms,
+                         "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+                times.append(entry)
+                general[which].append(entry)
+            # one step of the repulsion: forward and backward, sharded and square
+            Zg = Z.clone().requires_grad_(True)
+
+            def step(fn):
+                Zg.grad = None
+                fn(Zg).sum().backward()
+
+            sharded_ms = cuda_time_ms(
+                lambda: step(lambda z: pairwise_logkernel_rowlse_sharded(z, mesh, kernel)),
+                reps=20 if n == N_TSNE else 5)
+            square_ms = cuda_time_ms(lambda: step(lambda z: pairwise_logkernel_rowlse(z, kernel)),
+                                     reps=20 if n == N_TSNE else 5)
+            print(f"rowlse step n={n} {kernel}: sharded on {len(mesh)} shards {sharded_ms:.4f} ms, "
+                  f"square {square_ms:.4f} ms", flush=True)
+            times.append({"step": "rowlse fwd+bwd", "n": n, "mode": kernel,
+                          "sharded_ms": sharded_ms, "square_ms": square_ms})
+    print("rowlse_general_times " + json.dumps(times), flush=True)
+    return {which: {"shards": MESH_WORLD, "max_abs_err": worst[which], "times": entries}
+            for which, entries in general.items()}
+
+
+def sorted_rows(torch, P, idx):
+    """A sparse affinity's rows with their entries in column order (padding
+    last), so that two packings of the same rows compare slot by slot."""
+    key = torch.where(idx >= 0, idx.long(), torch.iinfo(torch.int64).max)
+    order = torch.argsort(key, dim=1, stable=True)
+    return torch.gather(P, 1, order), torch.gather(idx.long(), 1, order)
+
+
+def compare_affinities(torch, name, model_cls, X, mesh) -> dict:
+    """The input affinity of ``model_cls(random_state=0)`` on X with and
+    without the mesh: indices equal as sets per row, values within
+    MESH_AFFINITY_TOL."""
+    Xt = torch.from_numpy(X).cuda()
+    aff = model_cls(random_state=0).affinity_in
+    P1, I1 = aff(Xt)
+    aff._set_fit_mesh(mesh)
+    t0 = time.perf_counter()
+    P2, I2 = aff(Xt)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    (P1, I1), (P2, I2) = sorted_rows(torch, P1, I1), sorted_rows(torch, P2, I2)
+    same_shape = P1.shape == P2.shape
+    rows_differ = int((I1 != I2).any(dim=1).sum()) if same_shape else -1
+    err = float((P1 - P2).abs().max()) if same_shape else float("inf")
+    out = {"model": name, "width": [P1.shape[1], P2.shape[1]], "rows_with_other_indices":
+           rows_differ, "max_abs_err": err, "sharded_affinity_s": sharded_s}
+    print("mesh affinity " + json.dumps(out), flush=True)
+    if rows_differ != 0 or not err <= MESH_AFFINITY_TOL:
+        raise AssertionError(f"{name}: mesh affinity differs: {out}")
+    return out
+
+
+def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
+    """The multi-device phase on a MESH_WORLD-way mesh of the one card."""
+    from torchdr_tpu_torch import SNE, TSNE, UMAP
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * MESH_WORLD)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    worst = check_general_k2_k3(torch, gen)
+    check_sharded_rowlse(torch, gen, mesh)
+    general = time_general_k2_k3(torch, gen, mesh, worst)
+
+    X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    general_counts = {"rowlse_fwd_general": MESH_WORLD, "rowlse_bwd_general": MESH_WORLD}
+    compare_affinities(torch, "TSNE", TSNE, X10, mesh)
+    tsne = run_fit(torch, TSNE(random_state=0, mesh=mesh), X10, labels10, counters,
+                   expect=general_counts)
+    sne = run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, mesh=mesh), X10, labels10,
+                  counters, expect=general_counts)
+    compare_affinities(torch, "UMAP", UMAP, X, mesh)
+    umap = run_fit(torch, UMAP(random_state=0, mesh=mesh), X, labels, counters,
+                   expect=("fused_shared_repulsion",))
+    if single is None:  # the same fits without the mesh, as phase 4 runs them
+        single = {
+            "UMAP": run_fit(torch, UMAP(random_state=0), X, labels, counters,
+                            expect=("fused_shared_repulsion",)),
+            "TSNE": run_fit(torch, TSNE(random_state=0), X10, labels10, counters,
+                            expect=("rowlse_fwd", "rowlse_bwd")),
+            "SNE": run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12), X10, labels10, counters,
+                           expect=("rowlse_fwd", "rowlse_bwd")),
+        }
+    for fit in (tsne, sne, umap):
+        base = single[fit["model"]]
+        print(f"mesh fit {fit['model']}: wall {fit['wall_s']:.6f} s on {MESH_WORLD} shards of one "
+              f"card, {base['wall_s']:.6f} s without a mesh; peak {fit['peak_mem_gb']:.6f} GB "
+              f"({base['peak_mem_gb']:.6f}); phases {json.dumps(fit['phases_s'])} "
+              f"({json.dumps(base['phases_s'])})", flush=True)
+    if torch.cuda.device_count() > 1:
+        cards = make_mesh()
+        run_fit(torch, TSNE(random_state=0, mesh=cards), X10, labels10, counters,
+                expect={"rowlse_fwd_general": len(cards), "rowlse_bwd_general": len(cards)})
+    else:
+        print("mesh of the real cards: skipped, one card visible", flush=True)
+    general["K2"]["launches"] = tsne["launches"]["rowlse_fwd_general"]
+    general["K3"]["launches"] = tsne["launches"]["rowlse_bwd_general"]
+    return general
 
 
 def check_k2_k3(torch, gen) -> tuple:
@@ -1025,9 +1324,12 @@ def run_spectral_path(torch, counters, X, labels) -> dict:
 def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
-    once per step and the others not at all, on a bad embedding, or below
+    once per step (or, where ``expect`` maps names to counts, that many
+    times per step) and the others not at all, on a bad embedding, or below
     ``min_acc`` 10-NN label accuracy (None: no gate). ``scores`` adds the
     port's own eval scores of the embedding."""
+    if not isinstance(expect, dict):
+        expect = {name: 1 for name in expect}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -1041,7 +1343,7 @@ def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False
     if Z.shape != (X.shape[0], model.n_components) or not np.all(np.isfinite(Z)):
         raise AssertionError(f"{name}: embedding has shape {Z.shape} or non-finite values")
     for fn_name, count in launches.items():
-        want = model.n_iter_ if fn_name in expect else 0
+        want = model.n_iter_ * expect[fn_name] if fn_name in expect else 0
         if count != want or (fn_name in expect and count == 0):
             raise AssertionError(f"{name}: {fn_name} launched {count} times in {model.n_iter_} steps")
     Zt = torch.from_numpy(Z).cuda()
@@ -1156,11 +1458,16 @@ def main() -> int:
     from torchdr_tpu_torch import SNE, TSNE, UMAP
     from torchdr_tpu_torch.models.neighbor.umap import find_ab_params
     from torchdr_tpu_torch.ops.cuda.build import build_libraries
-    from torchdr_tpu_torch.ops.cuda.reduce_kernel import rowlse_bwd, rowlse_fwd
+    from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+        rowlse_bwd,
+        rowlse_bwd_general,
+        rowlse_fwd,
+        rowlse_fwd_general,
+    )
     from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
 
-    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd,
-                *(kernel for _, kernel, _, _ in gather_kernels()))
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
+                rowlse_bwd_general, *(kernel for _, kernel, _, _ in gather_kernels()))
 
     # 1. device
     smi = nvidia_smi_line()
@@ -1177,9 +1484,12 @@ def main() -> int:
     ivf_only = "--ivf" in sys.argv[1:]
     ne_only = "--ne" in sys.argv[1:]
     spectral_only = "--spectral" in sys.argv[1:]
+    mesh_only = "--mesh" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
+    elif mesh_only:
+        libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
@@ -1206,6 +1516,10 @@ def main() -> int:
         run_spectral_path(torch, counters, X, labels)
         print(smi, flush=True)
         return 0
+    if mesh_only:
+        run_mesh_path(torch, counters, X, labels)
+        print(smi, flush=True)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -1229,8 +1543,8 @@ def main() -> int:
     # package as in the port (|Z| ~1e16 after 30 steps): a hub point whose
     # column of P sums to ~14/n makes lr times the attraction's curvature
     # ~7.6, beyond heavy-ball stability (2(1 + 0.8) = 3.6); n/12 is under it
-    run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
-            counters, expect=("rowlse_fwd", "rowlse_bwd"))
+    sne = run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
+                  counters, expect=("rowlse_fwd", "rowlse_bwd"))
 
     # 5. LargeVis, InfoTSNE and PACMAP on 60k x 784, TSNEkhorn on 10k x 784
     run_ne_path(torch, counters, X, labels)
@@ -1243,6 +1557,12 @@ def main() -> int:
 
     # 8. the spectral estimators: incremental PCAs, KernelPCA, PHATE
     run_spectral_path(torch, counters, X, labels)
+
+    # 9. the multi-device path on a 4-way mesh of the card: the general K2
+    # and K3, the sharded row log-sum, t-SNE, SNE and UMAP on the mesh
+    general = run_mesh_path(torch, counters, X, labels,
+                            single={"UMAP": umap, "TSNE": tsne, "SNE": sne})
+    k2["general"], k3["general"] = general["K2"], general["K3"]
 
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn

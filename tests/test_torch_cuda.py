@@ -23,11 +23,19 @@ from torchdr_tpu_torch.ops.cuda.gather_kernel import (
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     rows_per_block,
     rowlse_bwd,
+    rowlse_bwd_general,
+    rowlse_bwd_general_plain,
     rowlse_bwd_plain,
     rowlse_fwd,
+    rowlse_fwd_general,
+    rowlse_fwd_general_plain,
     rowlse_fwd_plain,
 )
-from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse
+from torchdr_tpu_torch.ops.reduce import (
+    pairwise_logkernel_rowlse,
+    pairwise_logkernel_rowlse_sharded,
+)
+from torchdr_tpu_torch.parallel import make_mesh
 from torchdr_tpu_torch.ops.cuda.umap_kernel import (
     fused_shared_repulsion,
     rows_per_tile,
@@ -254,6 +262,107 @@ def test_tsne_fit_on_the_card_launches_k2_k3_every_step(cuda):
     model = TSNE(perplexity=20, max_iter=120, random_state=0)
     Z = model.fit_transform(X)
     assert rowlse_fwd.launches == rowlse_bwd.launches == model.n_iter_ == 120
+    assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
+
+
+def _hold_general_to_plain(Zq, Z, off, n_total, kernel, exclude_diag=True):
+    """The general K2 and K3 on one shard against their plain versions, at
+    the square kernels' tolerances; rows past ``n_total`` read −inf (K2)
+    and zeros (K3)."""
+    before = (rowlse_fwd_general.launches, rowlse_bwd_general.launches)
+    lse = rowlse_fwd_general(Zq, Z, off, n_total, kernel, exclude_diag)
+    want = rowlse_fwd_general_plain(Zq, Z, off, n_total, kernel, exclude_diag)
+    live = max(0, min(Zq.shape[0], n_total - off))
+    assert torch.isneginf(lse[live:]).all() and torch.isneginf(want[live:]).all()
+    assert float((lse[:live] - want[:live]).abs().max()) <= 1e-5 * max(
+        1.0, float(want[:live].abs().max()))
+    w = want.clone()
+    w[live:] = 0.0
+    g = torch.rand(Zq.shape[0], generator=torch.Generator(Zq.device).manual_seed(off),
+                   device=Zq.device) / Z.shape[0]
+    g[live:] = 0.0
+    dq, ddb = rowlse_bwd_general(Zq, Z, off, n_total, w, g, kernel)
+    rq, rdb = rowlse_bwd_general_plain(Zq, Z, off, n_total, w, g, kernel)
+    assert (rowlse_fwd_general.launches, rowlse_bwd_general.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not dq[live:].any() and not ddb[n_total:].any()
+    scale = max(float(rq.abs().max()), float(rdb.abs().max()))
+    assert float((dq - rq).abs().max()) <= 1e-4 * scale
+    assert float((ddb - rdb).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("n, world", [(5003, 4), (5001, 4), (3 * 512 + 7, 3), (40, 8)])
+def test_general_k2_k3_match_plain_on_every_shard(cuda, kernel, d, n, world):
+    """Every shard of Z cut as the sharded row log-sum cuts it: offsets not a
+    multiple of the row tile, a padded last shard (rows past n_total, and
+    rows of Zq past the end of Zdb), and shards of fewer rows than a tile."""
+    rng = np.random.default_rng(n + d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    chunk = -(-n // world)
+    Zp = torch.zeros((chunk * world, d), device=cuda)
+    Zp[:n] = Z
+    for r in range(world):
+        _hold_general_to_plain(Zp[r * chunk : (r + 1) * chunk], Z, r * chunk, n, kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_general_k2_k3_mask_columns_past_n_total(cuda, kernel):
+    """A database longer than n_total: its rows at or past n_total are
+    neither read as columns nor given a gradient; the diagonal kept."""
+    rng = np.random.default_rng(5)
+    Z = torch.from_numpy((2.0 * rng.normal(size=(900, 2))).astype(np.float32)).to(cuda)
+    _hold_general_to_plain(Z[300:700].contiguous(), Z, 300, 800, kernel)
+    _hold_general_to_plain(Z[300:700].contiguous(), Z, 300, 800, kernel, exclude_diag=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("n, world", [(3001, 4), (3001, 7), (500, 1)])
+def test_sharded_rowlse_on_the_card_matches_the_square_kernels(cuda, kernel, n, world):
+    """The sharded row log-sum on a mesh of the one card (a device repeated
+    ``world`` times) against K2 and K3: the values within 1e-5 of max(1,
+    |value|), the gradient within 1e-4 of its largest entry; the general
+    kernels launched once a shard and pass, the square ones never; the same
+    result twice."""
+    mesh = make_mesh(devices=[cuda] * world)
+    rng = np.random.default_rng(n + world)
+    Z = torch.from_numpy((2.0 * rng.normal(size=(n, 2))).astype(np.float32)).to(cuda)
+
+    def run(fn):
+        Zt = Z.clone().requires_grad_(True)
+        out = fn(Zt)
+        torch.sin(out).sum().backward()
+        return out.detach(), Zt.grad
+
+    before = [f.launches for f in (rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
+                                   rowlse_bwd_general)]
+    sh, g_sh = run(lambda z: pairwise_logkernel_rowlse_sharded(z, mesh, kernel))
+    after = [f.launches for f in (rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
+                                  rowlse_bwd_general)]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, world, world]
+    sq, g_sq = run(lambda z: pairwise_logkernel_rowlse(z, kernel))
+    assert float((sh - sq).abs().max()) <= 1e-5 * max(1.0, float(sq.abs().max()))
+    assert float((g_sh - g_sq).abs().max()) <= 1e-4 * float(g_sq.abs().max())
+    again, g_again = run(lambda z: pairwise_logkernel_rowlse_sharded(z, mesh, kernel))
+    assert torch.equal(again, sh) and torch.equal(g_again, g_sh)
+
+
+@pytest.mark.cuda
+def test_tsne_mesh_fit_on_the_card_launches_the_general_kernels(cuda):
+    rng = np.random.default_rng(1)
+    centers = rng.normal(scale=8.0, size=(4, 16))
+    X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
+    mesh = make_mesh(devices=[cuda] * 3)
+    for f in (rowlse_fwd, rowlse_bwd, rowlse_fwd_general, rowlse_bwd_general):
+        f.launches = 0
+    model = TSNE(perplexity=20, max_iter=120, random_state=0, mesh=mesh)
+    Z = model.fit_transform(X)
+    assert rowlse_fwd.launches == rowlse_bwd.launches == 0
+    assert rowlse_fwd_general.launches == rowlse_bwd_general.launches == 3 * model.n_iter_
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
 
 

@@ -218,12 +218,41 @@ def test_kmeans_ari_on_fewer_distinct_rows_than_clusters():
     assert np.isfinite(ari) and pred.shape == (30,)
 
 
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_knn_label_accuracy_over_a_mesh_matches_jax(toy_blobs, per_sample):
+    """The kNN build row-sharded over an 8-device mesh in both packages
+    (the JAX package's ``TestDistributedEval``): the same scores at 1e-6."""
+    from torchdr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from torchdr_tpu_torch.parallel import make_mesh
+
+    X, y = toy_blobs
+    want = jeval.knn_label_accuracy(X, y, k=10, mesh=jax_make_mesh(8),
+                                    return_per_sample=per_sample)
+    got = teval.knn_label_accuracy(X, y, k=10, mesh=make_mesh(devices=["cpu"] * 8),
+                                   return_per_sample=per_sample, device="cpu")
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_neighborhood_preservation_over_a_mesh_matches_jax(toy_blobs):
+    from torchdr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from torchdr_tpu_torch.parallel import make_mesh
+
+    X, _ = toy_blobs
+    Z = X[:, :2] + 0.1 * np.random.default_rng(0).normal(size=(X.shape[0], 2)).astype(np.float32)
+    want = jeval.neighborhood_preservation(X, Z, K=10, mesh=jax_make_mesh(8))
+    got = teval.neighborhood_preservation(X, Z, K=10, mesh=make_mesh(devices=["cpu"] * 8),
+                                          device="cpu")
+    assert got == pytest.approx(want, abs=1e-6)
+    assert got == pytest.approx(teval.neighborhood_preservation(X, Z, K=10, device="cpu"),
+                                abs=1e-6)
+
+
 @pytest.mark.parametrize("call", [
     lambda X, y: teval.knn_label_accuracy(X, y, mesh=object(), device="cpu"),
     lambda X, y: teval.neighborhood_preservation(X, X, K=5, mesh=object(), device="cpu"),
 ])
-def test_mesh_raises_naming_item_20(toy_blobs, call):
-    with pytest.raises(NotImplementedError, match="item 20"):
+def test_mesh_that_is_not_a_mesh_raises(toy_blobs, call):
+    with pytest.raises(TypeError, match="Mesh"):
         call(*toy_blobs)
 
 

@@ -211,6 +211,27 @@ def test_grid_covers_every_column_once_within_shared_memory(n, sm_count):
                 assert chunk >= 64
 
 
+@pytest.mark.parametrize("n_rows, n", [(2_500, 10_000), (2_501, 10_001), (12_500, 50_000),
+                                       (10_000, 2_500), (50_000, 12_500), (5, 40), (1, 1)])
+def test_general_grid_covers_every_column_once_in_whole_waves(n_rows, n):
+    """The general kernels' grid: a shard of n_rows rows against n columns
+    (and pass B of the general K3, the database's rows against the shard's):
+    each column in one chunk within the staging budget, and at a mesh
+    shard's sizes fewer row tiles take more chunks, so the grid still fills
+    whole waves to nine tenths and never runs a little over one."""
+    for d in (1, 2, 3, 8):
+        for backward in (False, True):
+            n_chunks, chunk = column_chunks(n, 132, d, backward, n_rows=n_rows)
+            assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
+            assert BLOCKS_PER_SM * (staged_bytes(chunk, d, backward) + 1024) <= 227 * 1024
+            if n >= 2_500 and n_rows >= 2_500:
+                assert chunk >= 32
+                blocks = -(-n_rows // rows_per_block(d)) * n_chunks
+                wave = 132 * BLOCKS_PER_SM
+                assert 0.9 * wave * -(-blocks // wave) <= blocks
+    assert column_chunks(10_000, 132, 2, False, n_rows=10_000) == column_chunks(10_000, 132)
+
+
 def test_wrappers_check_their_inputs():
     Z = torch.zeros((16, 2))
     with pytest.raises(ValueError, match="kernel"):

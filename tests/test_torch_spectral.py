@@ -496,7 +496,84 @@ def test_exact_incremental_pca_state_carried_from_jax(Xa):
                                atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
-# --- what stays for item 20, and the device rule ---
+# --- the device mesh (ROADMAP item 20), and the device rule ---
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    from torchdr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from torchdr_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=["cpu"] * 8), jax_make_mesh(8)
+
+
+@pytest.mark.parametrize("case", ["gaussian_all_300", "student_euclidean"])
+def test_kernel_pca_mesh_matches_jax(case, meshes):
+    """The matrix-free operator row-sharded over an 8-device mesh in both
+    packages, from the JAX package's start: the same iteration count,
+    eigenvalues at 1e-5 of λ₁ and eigenvectors up to sign at 1e-4, as
+    without a mesh; and the port's result equals its single-device one."""
+    mesh, jax_mesh = meshes
+    make_X, akw, k, T, J = MATFREE_CASES[case]
+    X = make_X()
+    jm = JaxKernelPCA(affinity=J(**akw), n_components=k, solver="lobpcg", random_state=0,
+                      mesh=jax_mesh)
+    jm.fit_transform(X)
+    tm = KernelPCA(affinity=T(device="cpu", **akw), n_components=k, solver="lobpcg",
+                   random_state=0, mesh=mesh, device="cpu")
+    X0 = torch.from_numpy(_jax_start(0, X.shape[0], k))
+    lam, U = tm._lobpcg_matfree(torch.from_numpy(X), tm._kernel_block_fn(), X0=X0)
+    wlam = np.asarray(jm.eigenvalues_)
+    np.testing.assert_allclose(lam.numpy(), wlam, atol=1e-5 * wlam[0], rtol=0)
+    _up_to_sign(U.numpy(), np.asarray(jm.eigenvectors_), 1e-4)
+    single = KernelPCA(affinity=T(device="cpu", **akw), n_components=k, solver="lobpcg",
+                       random_state=0, device="cpu")
+    lam1, U1 = single._lobpcg_matfree(torch.from_numpy(X), single._kernel_block_fn(), X0=X0)
+    assert tm.lobpcg_iterations_ == single.lobpcg_iterations_
+    np.testing.assert_allclose(lam.numpy(), lam1.numpy(), atol=1e-6 * wlam[0], rtol=0)
+
+
+@pytest.mark.parametrize("inject", [False, True])
+def test_exact_incremental_pca_mesh_matches_jax(Xa, inject, meshes):
+    """Each batch's Σx and XᵀX row-sharded over the mesh, given at
+    construction or injected by ``_set_fit_mesh``, in both packages: the
+    tolerances of the single-device test."""
+    mesh, jax_mesh = meshes
+    if inject:
+        jm, tm = JaxExactIPCA(n_components=4, batch_size=100), ExactIncrementalPCA(
+            n_components=4, batch_size=100, device="cpu")
+        jm._set_fit_mesh(jax_mesh)
+        tm._set_fit_mesh(mesh)
+    else:
+        jm = JaxExactIPCA(n_components=4, batch_size=100, mesh=jax_mesh)
+        tm = ExactIncrementalPCA(n_components=4, batch_size=100, mesh=mesh, device="cpu")
+    wZ = jm.fit_transform(Xa)
+    Z = tm.fit_transform(Xa)
+    np.testing.assert_allclose(tm.mean_.numpy(), jm.mean_, atol=1e-6)
+    _up_to_sign(tm.components_.numpy().T, np.asarray(jm.components_).T, 1e-5)
+    np.testing.assert_allclose(tm.explained_variance_.numpy(), jm.explained_variance_, rtol=1e-5)
+    _up_to_sign(Z, np.asarray(wZ), 1e-5 * np.abs(wZ).max())
+
+
+def test_pca_of_row_sharded_input_matches_jax(meshes):
+    """``shard_rows`` pieces take the covariance method, as a sharded array
+    does in the JAX package: the embedding within 1e-2 in absolute value of
+    the dense fit (``tests/test_parallel.py``'s bound) and within 1e-5 of
+    its largest entry of the JAX package's sharded fit (the covariance
+    method's tolerance in ``tests/test_torch_umap.py::test_pca_init_matches_jax``)."""
+    from torchdr_tpu.models.spectral import PCA as JaxPCA
+    from torchdr_tpu.parallel.mesh import shard_rows as jax_shard_rows
+    from torchdr_tpu_torch import PCA
+    from torchdr_tpu_torch.parallel import shard_rows
+
+    mesh, jax_mesh = meshes
+    X = np.random.default_rng(0).normal(size=(256, 12)).astype(np.float32)
+    dense = np.abs(PCA(n_components=3, device="cpu").fit_transform(X))
+    Z = PCA(n_components=3, device="cpu")._fit_transform(shard_rows(X, mesh)).numpy()
+    assert np.abs(np.abs(Z) - dense).max() < 1e-2
+    wZ = np.asarray(JaxPCA(n_components=3)._fit_transform(jax_shard_rows(jnp.asarray(X),
+                                                                        jax_mesh)))
+    np.testing.assert_allclose(Z, wZ, atol=1e-5 * np.abs(wZ).max(), rtol=0)
 
 
 @pytest.mark.parametrize("make", [
@@ -504,8 +581,8 @@ def test_exact_incremental_pca_state_carried_from_jax(Xa):
     lambda: ExactIncrementalPCA(mesh=object(), device="cpu"),
     lambda: ExactIncrementalPCA(device="cpu")._set_fit_mesh(object()),
 ])
-def test_mesh_raises_naming_item_20(make):
-    with pytest.raises(NotImplementedError, match="item 20"):
+def test_mesh_that_is_not_a_mesh_raises(make):
+    with pytest.raises(TypeError, match="Mesh"):
         make()
 
 

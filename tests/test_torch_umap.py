@@ -518,7 +518,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models/neighbor/tsnekhorn.py", "utils/lobpcg.py",
                 "models/spectral/kernel_pca.py", "models/spectral/incremental_pca.py",
                 "models/spectral/phate.py", "eval/__init__.py", "eval/knn_metrics.py",
-                "eval/silhouette.py", "eval/kmeans_ari.py"):
+                "eval/silhouette.py", "eval/kmeans_ari.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/knn.py", "parallel/sparse.py", "parallel/ivf.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:

@@ -7,8 +7,10 @@
 
 ``zero_diag`` excludes the self-distance by masking it to ``MASK_VALUE``.
 ``knn_mode="ivf"`` (or a :class:`KnnConfig` with mode "ivf") builds the
-kNN graph through ``ops/ivf.ivf_knn``. The device-mesh build and the
-sharded kNN wait for later slices.
+kNN graph through ``ops/ivf.ivf_knn``. With a device mesh (``mesh=``, or
+injected by an estimator through ``_set_fit_mesh``) the exact kNN graph is
+built with row-sharded queries over the mesh (``parallel/knn``), and the
+IVF graph by ``parallel/ivf.ivf_knn_sharded``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ from ..base import BaseEstimator, resolve_device
 from ..ops.distance import knn_graph, pairwise_distances
 from ..ops.ivf import ivf_knn
 from ..ops.knn_config import KnnConfig
+from ..parallel.ivf import ivf_knn_sharded
+from ..parallel.knn import knn_graph_sharded
+from ..parallel.mesh import check_mesh
 from ..utils.logger import get_logger, log_phase
 from ..utils.wrappers import to_torch
 
@@ -43,6 +48,7 @@ class Affinity(BaseEstimator, ABC):
         random_state: Optional[int] = None,
         knn_mode: str = "exact",
         knn_precision: str = "highest",
+        mesh=None,
         **kwargs,
     ):
         self.metric = metric
@@ -50,6 +56,9 @@ class Affinity(BaseEstimator, ABC):
         self.device = device if device is not None else "auto"
         self.verbose = bool(verbose)
         self.random_state = random_state
+        # device mesh of the build phase; an estimator injects its fit mesh
+        # through _set_fit_mesh
+        self.mesh = check_mesh(mesh)
         cfg = knn_mode if isinstance(knn_mode, KnnConfig) else KnnConfig(
             mode=knn_mode, precision=knn_precision
         )
@@ -60,8 +69,21 @@ class Affinity(BaseEstimator, ABC):
         self.logger = get_logger(type(self).__name__, self.verbose)
         self.timings_: Dict[str, float] = {}
 
+    # --- mesh plumbing (estimators inject their fit mesh here) ---
+
+    def _set_fit_mesh(self, mesh) -> None:
+        """Called by estimators so that the build phase shards over their mesh."""
+        self._fit_mesh = check_mesh(mesh)
+
+    def _active_mesh(self):
+        m = getattr(self, "_fit_mesh", None)
+        return m if m is not None else self.mesh
+
+    def _device(self) -> torch.device:
+        return resolve_device(self.device, self._active_mesh())
+
     def __call__(self, X, **kwargs):
-        X, _ = to_torch(X, device=resolve_device(self.device))
+        X, _ = to_torch(X, device=self._device())
         return self._compute_affinity(X, **kwargs)
 
     def _compute_affinity(self, X: torch.Tensor, **kwargs):
@@ -81,6 +103,15 @@ class Affinity(BaseEstimator, ABC):
         if k is None:
             C, _ = pairwise_distances(X, metric=self.metric, exclude_diag=self.zero_diag)
             return (C, None) if return_indices else C
+        mesh = self._active_mesh()
+        if mesh is not None and self.knn_mode != "ivf":
+            with log_phase(self.logger, "knn", self.timings_, X.device):
+                C, indices = knn_graph_sharded(
+                    X, k=k, mesh=mesh, metric=self.metric, exclude_diag=self.zero_diag,
+                    block_size=self.knn_block_size, mode=self.knn_mode,
+                    precision=self.knn_precision,
+                )
+            return (C, indices) if return_indices else C
         if self.knn_mode == "ivf":
             if self.metric not in ("sqeuclidean", "euclidean"):
                 raise ValueError("[TorchDR-Torch] ERROR : IVF tier supports (sq)euclidean only.")
@@ -93,7 +124,10 @@ class Affinity(BaseEstimator, ABC):
             if cfg.ivf_block is not None:
                 ivf_kwargs["block"] = int(cfg.ivf_block)
             with log_phase(self.logger, "knn", self.timings_, X.device):
-                C, indices = ivf_knn(X, **ivf_kwargs)
+                if mesh is not None:
+                    C, indices = ivf_knn_sharded(X, mesh=mesh, **ivf_kwargs)
+                else:
+                    C, indices = ivf_knn(X, **ivf_kwargs)
                 if self.metric == "euclidean":
                     C = torch.sqrt(torch.clamp(C, min=0.0))
             return (C, indices) if return_indices else C
@@ -114,7 +148,7 @@ class LogAffinity(Affinity, ABC):
     """Affinity computed in log domain; ``__call__(X, log=True)`` returns logs."""
 
     def __call__(self, X, log: bool = False, **kwargs):
-        X, _ = to_torch(X, device=resolve_device(self.device))
+        X, _ = to_torch(X, device=self._device())
         log_aff = self._compute_log_affinity(X, **kwargs)
         return log_aff if log else torch.exp(log_aff)
 
@@ -152,7 +186,7 @@ class SparseAffinity(Affinity, ABC):
         self.sparsity = bool(sparsity)
 
     def __call__(self, X, return_indices: bool = True, **kwargs):
-        X, _ = to_torch(X, device=resolve_device(self.device))
+        X, _ = to_torch(X, device=self._device())
         return self._compute_sparse_affinity(X, return_indices=return_indices, **kwargs)
 
     def _compute_sparse_affinity(self, X: torch.Tensor, return_indices: bool = True, **kwargs):
@@ -169,7 +203,7 @@ class SparseLogAffinity(SparseAffinity, ABC):
     """
 
     def __call__(self, X, return_indices: bool = True, log: bool = False, **kwargs):
-        X, _ = to_torch(X, device=resolve_device(self.device))
+        X, _ = to_torch(X, device=self._device())
         result = self._compute_sparse_log_affinity(X, return_indices=return_indices, **kwargs)
         if return_indices:
             log_aff, indices = result

@@ -16,6 +16,7 @@ from ..ops.distance import pairwise_distances
 from ..ops.reductions import matrix_power
 from ..ops.root_search import binary_search
 from ..ops.sparse import symmetrize_sparse
+from ..parallel.sparse import distributed_symmetrize_sparse
 from ..utils.validation import check_neighbor_param
 from .base import Affinity, LogAffinity, SparseAffinity
 
@@ -180,7 +181,15 @@ class UMAPAffinity(SparseAffinity):
                 k_out = None
                 if self.max_degree is not None:
                     k_out = max(8, -(-int(self.max_degree) // 8) * 8)
-                P, indices = symmetrize_sparse(P, indices, mode="sum_minus_prod", k_out=k_out)
+                mesh = self._active_mesh()
+                if mesh is not None:
+                    # the edge exchange over the mesh: each shard merges the
+                    # transposed edges of the rows it owns
+                    P, indices = distributed_symmetrize_sparse(
+                        P, indices, mesh, mode="sum_minus_prod", k_out=k_out
+                    )
+                else:
+                    P, indices = symmetrize_sparse(P, indices, mode="sum_minus_prod", k_out=k_out)
             else:
                 P = P + P.T - P * P.T
 

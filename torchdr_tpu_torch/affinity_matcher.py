@@ -17,8 +17,16 @@ Python loop over device tensors with the same per-step plan:
 
 Gradients come in closed form (``_gradients``, UMAP) or by autograd of a
 scalar loss (``_loss``, t-SNE and SNE): each step then takes
-``torch.autograd.grad`` on a detached copy of Z that requires grad. The
-generic ``affinity_out`` loss, the device mesh, parametric encoders and
+``torch.autograd.grad`` on a detached copy of Z that requires grad.
+
+A device mesh (``mesh=``, or ``distributed=True``/``"auto"``: every visible
+CUDA device; "auto" only when there is more than one) is resolved before
+the affinity phase and injected into the input affinity, whose kNN build
+and symmetrization then run row-sharded over it. The loop's state (Z, the
+optimizer's buffers, the affinity) lives on the mesh's first device, where
+the JAX package row-shards it by GSPMD placement hints; the explicitly
+sharded operations (t-SNE's and SNE's O(n²) repulsion) spread their work
+over the mesh. The generic ``affinity_out`` loss, parametric encoders and
 bounded dispatches wait for later slices.
 """
 
@@ -31,6 +39,7 @@ import torch
 
 from .affinity.base import Affinity, SparseAffinity
 from .base import DRModule
+from .parallel.mesh import check_mesh, make_mesh
 from .utils.logger import log_phase
 from .utils.optim import make_optimizer, normalize_optimizer_kwargs
 from .utils.schedulers import make_scheduler
@@ -63,6 +72,8 @@ class AffinityMatcher(DRModule):
         verbose: bool = False,
         random_state: Optional[int] = None,
         check_interval: int = 50,
+        distributed: Union[bool, str] = False,
+        mesh=None,
         **kwargs,
     ):
         super().__init__(
@@ -85,11 +96,27 @@ class AffinityMatcher(DRModule):
         self.init = init
         self.init_scaling = init_scaling
         self.check_interval = check_interval
+        self.distributed = distributed
+        self.mesh = check_mesh(mesh)
 
         # Early-exaggeration plan; overridden by NeighborEmbedding.
         self._ee_coeff = 1.0
         self._ee_iter = 0
         self.n_iter_ = -1
+
+    # --- the device mesh ---
+
+    def _resolve_mesh(self):
+        """The fit's mesh, or None for one device: ``mesh`` when given, else
+        every visible CUDA device when ``distributed`` is True, or "auto"
+        with more than one visible."""
+        if self.mesh is not None:
+            return self.mesh
+        if self.distributed == "auto":
+            enabled = torch.cuda.device_count() > 1
+        else:
+            enabled = bool(self.distributed)
+        return make_mesh() if enabled else None
 
     # --- fit ---
 
@@ -98,6 +125,15 @@ class AffinityMatcher(DRModule):
         self.device_ = X.device
         self._generator_ = self._root_generator()
         self.timings_ = {}
+        # the mesh is resolved before the affinity phase and injected into
+        # the input affinity, so that its kNN build shards over it too
+        self._fit_mesh_ = self._resolve_mesh()
+        self.affinity_in._set_fit_mesh(self._fit_mesh_)
+        if self._fit_mesh_ is not None:
+            self.logger.info(
+                f"Fitting over a mesh of {len(self._fit_mesh_)} devices "
+                f"(axis '{self._fit_mesh_.axis}'); the loop's state on {X.device}."
+            )
 
         with log_phase(self.logger, "affinity", self.timings_, X.device):
             self.on_affinity_computation_start()

@@ -23,8 +23,31 @@ from .utils.logger import get_logger
 from .utils.wrappers import deduplicate, restore_format, to_host, validate_2d
 
 
-def resolve_device(device) -> torch.device:
-    """``"auto"``/None -> ``cuda`` (raises without a card); else as given."""
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    return (a.index if a.index is not None else torch.cuda.current_device()) == (
+        b.index if b.index is not None else torch.cuda.current_device()
+    )
+
+
+def resolve_device(device, mesh=None) -> torch.device:
+    """``"auto"``/None -> ``cuda`` (raises without a card); else as given.
+
+    With a device mesh, "auto" is the mesh's first device, where a fit keeps
+    its state; any other device must be that one."""
+    if mesh is not None:
+        first = mesh.devices[0]
+        if device is None or device == "auto":
+            return first
+        if not _same_device(torch.device(device), first):
+            raise ValueError(
+                f"[TorchDR-Torch] ERROR : device={device!r} and the mesh's first device "
+                f"{first} differ; a fit keeps its state on the mesh's first device."
+            )
+        return first
     if device is None or device == "auto":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -107,8 +130,13 @@ class DRModule(BaseEstimator, ABC):
 
     # --- device and generator ---
 
+    def _resolve_mesh(self):
+        """The device mesh of a fit, if any; with one, ``device="auto"``
+        is its first device."""
+        return getattr(self, "mesh", None)
+
     def _resolve_device(self) -> torch.device:
-        self.device_ = resolve_device(self.device)
+        self.device_ = resolve_device(self.device, self._resolve_mesh())
         return self.device_
 
     def _root_generator(self) -> torch.Generator:

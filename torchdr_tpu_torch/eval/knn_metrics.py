@@ -1,8 +1,9 @@
 """kNN-based evaluation metrics (counterpart of ``torchdr_tpu/eval/knn_metrics.py``).
 
 Each runs on the exact kNN graph of ``ops/distance.py`` on ``device``
-("auto": the card, raising without one). The device mesh (``mesh=``)
-raises: it is ROADMAP item 20.
+("auto": the card, raising without one; with ``mesh=``, the mesh's first
+device). With a device mesh the kNN build row-shards the queries over it
+(``parallel/knn.knn_graph_sharded``).
 """
 
 from __future__ import annotations
@@ -12,15 +13,16 @@ import torch
 
 from ..base import resolve_device
 from ..ops.distance import knn_graph
+from ..parallel.knn import knn_graph_sharded
+from ..parallel.mesh import check_mesh
 from ..utils.wrappers import to_torch
-
-_MESH = "[TorchDR-Torch] ERROR : mesh= is the multi-device path, ROADMAP item 20; not ported yet."
 
 
 def _knn_indices(X, k, metric, exclude_diag, mesh):
     if mesh is not None:
-        raise NotImplementedError(_MESH)
-    _, idx = knn_graph(X, k=k, metric=metric, exclude_diag=exclude_diag)
+        _, idx = knn_graph_sharded(X, k, mesh, metric=metric, exclude_diag=exclude_diag)
+    else:
+        _, idx = knn_graph(X, k=k, metric=metric, exclude_diag=exclude_diag)
     return idx.long()
 
 
@@ -45,7 +47,7 @@ def knn_label_accuracy(
     device: str = "auto",
 ):
     """Fraction of each point's k nearest neighbours sharing its label."""
-    X, _ = to_torch(X, device=resolve_device(device))
+    X, _ = to_torch(X, device=resolve_device(device, check_mesh(mesh)))
     labels = _as_index_tensor(labels, X.device)
     idx = _knn_indices(X, k, metric, exclude_self, mesh)
     per_sample = torch.mean((labels[idx] == labels[:, None]).to(torch.float32), dim=1)
@@ -63,7 +65,7 @@ def neighborhood_preservation(
 ):
     """K-ary neighbourhood overlap between the input X and the embedding Z:
     |kNN_X ∩ kNN_Z| / K for each point."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, check_mesh(mesh))
     X, _ = to_torch(X, device=dev)
     Z, _ = to_torch(Z, device=dev)
     idx_X = _knn_indices(X, K, metric, True, mesh)

@@ -5,8 +5,10 @@ exact nearest neighbours). Attraction is a cross-entropy over the kNN
 edges; the exact O(n²) repulsion runs through
 ``ops/reduce.pairwise_logkernel_rowlse``, whose forward is K2 and whose
 backward is K3 on the card, so no n×n matrix is formed in either pass.
-Gradients come by autograd of the loss. The row-sharded repulsion over a
-device mesh waits for the multi-GPU slice.
+Gradients come by autograd of the loss. When the fit has a device mesh,
+the repulsion is row-sharded over it
+(``ops/reduce.pairwise_logkernel_rowlse_sharded``: the general K2 and K3
+on every shard, every step).
 """
 
 from __future__ import annotations
@@ -17,9 +19,18 @@ import torch
 
 from ...affinity.entropic import EntropicAffinity
 from ...ops.distance import pairwise_distances_indexed
-from ...ops.reduce import pairwise_logkernel_rowlse
+from ...ops.reduce import pairwise_logkernel_rowlse, pairwise_logkernel_rowlse_sharded
 from ...ops.reductions import cross_entropy_loss
 from .base import NeighborEmbedding
+
+
+def _rowlse_maybe_sharded(model, Z, kernel):
+    """Row log-sum of the output kernel; row-sharded over the fit's mesh
+    when it has one (the reference's per-rank row chunks)."""
+    mesh = getattr(model, "_fit_mesh_", None)
+    if mesh is not None:
+        return pairwise_logkernel_rowlse_sharded(Z, mesh, kernel, True, model.block_size)
+    return pairwise_logkernel_rowlse(Z, kernel, True, model.block_size)
 
 
 class _EntropicNeighborEmbedding(NeighborEmbedding):
@@ -148,8 +159,9 @@ class TSNE(_EntropicNeighborEmbedding):
         return cross_entropy_loss(consts["P"], log_Q, log=True), carry
 
     def _repulsive_loss(self, Z, consts, carry, it):
-        """log Σ_ij (1 + d²_ij)⁻¹ over all pairs i ≠ j (K2 forward, K3 backward)."""
-        row_lse = pairwise_logkernel_rowlse(Z, "student", True, self.block_size)
+        """log Σ_ij (1 + d²_ij)⁻¹ over all pairs i ≠ j (K2 forward, K3 backward;
+        their general form on each shard of a mesh)."""
+        row_lse = _rowlse_maybe_sharded(self, Z, "student")
         return torch.logsumexp(row_lse, dim=0), carry
 
 
@@ -162,5 +174,5 @@ class SNE(_EntropicNeighborEmbedding):
 
     def _repulsive_loss(self, Z, consts, carry, it):
         """(1/n) Σ_i log Σ_{j≠i} e^(−d²_ij) (K2 forward, K3 backward)."""
-        row_lse = pairwise_logkernel_rowlse(Z, "gaussian", True, self.block_size)
+        row_lse = _rowlse_maybe_sharded(self, Z, "gaussian")
         return torch.sum(row_lse) / consts["n"], carry

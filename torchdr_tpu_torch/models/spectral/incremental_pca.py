@@ -16,8 +16,8 @@ split of the work between the host and the device:
 
 Input: an array or tensor (taken in ``batch_size`` row slices), or any
 iterable of row batches (arrays, tensors, or ``(x, y)`` pairs as a
-DataLoader yields them). The device mesh (``mesh=``) raises: it is ROADMAP
-item 20.
+DataLoader yields them). ``ExactIncrementalPCA`` takes a device mesh
+(``mesh=``): each batch's statistics are row-sharded over it.
 """
 
 from __future__ import annotations
@@ -29,9 +29,8 @@ import torch
 
 from ...base import DRModule
 from ...ops.reductions import svd, svd_flip
+from ...parallel.mesh import check_mesh, shard_rows
 from ...utils.wrappers import restore_format, to_torch
-
-_MESH = "[TorchDR-Torch] ERROR : mesh= is the multi-device path, ROADMAP item 20; not ported yet."
 
 
 def _host(batch) -> np.ndarray:
@@ -244,6 +243,11 @@ class ExactIncrementalPCA(DRModule):
     covariance gives the components. Pass 2 projects every batch on the
     device. A one-shot iterator of batches is materialised once, since both
     passes read every batch.
+
+    With a device mesh (``mesh=``, or injected by ``_set_fit_mesh``) each
+    batch is row-sharded over it: every shard's device takes the Σx and XᵀX
+    of its rows, and the partial sums are added on the fit's device in rank
+    order (the JAX package's psum) before the host float64 accumulation.
     """
 
     def __init__(
@@ -256,8 +260,6 @@ class ExactIncrementalPCA(DRModule):
         mesh=None,
         **kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         super().__init__(
             n_components=n_components,
             device=device,
@@ -267,14 +269,29 @@ class ExactIncrementalPCA(DRModule):
             **kwargs,
         )
         self.batch_size = batch_size
-        self.mesh = mesh
+        self.mesh = check_mesh(mesh)
+        self._fit_mesh_ = self.mesh
         self.mean_ = None
         self.components_ = None
 
     def _set_fit_mesh(self, mesh) -> None:
-        """The JAX package's mesh injection; only ``None`` is supported."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+        """The mesh-injection protocol of the affinities."""
+        self._fit_mesh_ = check_mesh(mesh)
+
+    def _resolve_mesh(self):
+        return self._fit_mesh_
+
+    def _batch_stats(self, Xb: torch.Tensor):
+        """Σx and XᵀX of one batch (float32), over the fit's mesh when it
+        has one."""
+        mesh = self._fit_mesh_
+        if mesh is None:
+            return torch.sum(Xb, dim=0), Xb.T @ Xb
+        s = g = None
+        for piece in shard_rows(Xb, mesh):
+            s_r, g_r = torch.sum(piece, dim=0).to(Xb.device), (piece.T @ piece).to(Xb.device)
+            s, g = (s_r, g_r) if s is None else (s + s_r, g + g_r)
+        return s, g
 
     def fit(self, X, y=None):
         self.fit_transform(X, y)
@@ -288,8 +305,9 @@ class ExactIncrementalPCA(DRModule):
         gram = np.zeros((d, d), np.float64)
         for b in batches:
             Xb = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(device)
-            sum_x += torch.sum(Xb, dim=0).double().cpu().numpy()
-            gram += (Xb.T @ Xb).double().cpu().numpy()
+            s, g = self._batch_stats(Xb)
+            sum_x += s.double().cpu().numpy()
+            gram += g.double().cpu().numpy()
             total += b.shape[0]
         mean = sum_x / total
         cov = gram / total - np.outer(mean, mean)

@@ -18,8 +18,11 @@ Three solvers, as in the JAX package:
 ``lobpcg_iterations_`` holds the LOBPCG iteration count of the last fit
 (None for "eigh"). The LOBPCG start is a normal draw from the estimator's
 generator; the ``X0`` argument of :meth:`KernelPCA._lobpcg_matfree` and
-:meth:`KernelPCA._lobpcg_dense` takes a given draw instead. The device mesh
-(``mesh=``) raises: it is ROADMAP item 20.
+:meth:`KernelPCA._lobpcg_dense` takes a given draw instead. With a device
+mesh (``mesh=``) the matrix-free operator is row-sharded over it, as the
+JAX package's ``shard_map`` tier: each shard's device forms and multiplies
+the kernel rows of its chunk, and the product's rows are gathered on the
+fit's device.
 """
 
 from __future__ import annotations
@@ -33,12 +36,12 @@ from ...affinity.entropic import NormalizedGaussianAffinity, NormalizedStudentAf
 from ...base import DRModule
 from ...ops.metrics import pairwise_block
 from ...ops.reductions import center_kernel, check_nonnegativity_eigenvalues, svd_flip
+from ...parallel.mesh import check_mesh, replicate
 from ...utils.lobpcg import lobpcg_standard
 
 # diagonal shift of the matrix-free operator: the centred kernel is positive
 # semi-definite, LOBPCG wants it definite
 _SHIFT = 1e-3
-_MESH = "[TorchDR-Torch] ERROR : mesh= is the multi-device path, ROADMAP item 20; not ported yet."
 
 
 class KernelPCA(DRModule):
@@ -60,8 +63,10 @@ class KernelPCA(DRModule):
         tol = 10 · n · ε(float32): 0.0715 at n = 60,000, loose enough to stop
         near-degenerate top pairs far from convergence (ROADMAP, "Quirks of
         the reference").
-    mesh : not supported
-        Raises ``NotImplementedError`` (ROADMAP item 20).
+    mesh : Mesh, optional
+        Row-shards the matrix-free LOBPCG operator over a device mesh: each
+        device forms and multiplies the kernel rows of its chunk. The fit
+        keeps its state on the mesh's first device.
     """
 
     def __init__(
@@ -77,8 +82,6 @@ class KernelPCA(DRModule):
         tol: Optional[float] = None,
         **kwargs,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
         super().__init__(
             n_components=n_components,
             device=device,
@@ -92,7 +95,7 @@ class KernelPCA(DRModule):
         )
         self.nodiag = nodiag
         self.solver = solver
-        self.mesh = mesh
+        self.mesh = check_mesh(mesh)
         self.tol = tol
 
     def _fit_transform(self, X: torch.Tensor, y: Optional[Any] = None) -> torch.Tensor:
@@ -182,10 +185,19 @@ class KernelPCA(DRModule):
         # the conditioning of Affinity._distance_matrix: distances are
         # translation invariant, the norms-plus-gram form is not
         X = X - torch.mean(X, dim=0, keepdim=True)
-        starts = range(0, n, block)
+        # (device, X there, row block starts): the whole operator, or one
+        # row chunk per shard of the mesh, each on its device
+        if self.mesh is None:
+            parts = [(X.device, X, range(0, n, block))]
+        else:
+            world = len(self.mesh)
+            chunk = -(-n // world)
+            block = min(block, chunk)
+            parts = [(Xd.device, Xd, range(r * chunk, min(n, (r + 1) * chunk), block))
+                     for r, Xd in enumerate(replicate(X, self.mesh))]
 
-        def rows(r0: int) -> torch.Tensor:
-            C = pairwise_block(X[r0 : r0 + block], X, "sqeuclidean")
+        def rows(Xd: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+            C = pairwise_block(Xd[r0:r1], Xd, "sqeuclidean")
             if sqrt_metric:
                 C = torch.sqrt(torch.clamp(C, min=0.0))
             Kb = kern(C)
@@ -193,14 +205,24 @@ class KernelPCA(DRModule):
                 Kb.diagonal(r0).zero_()
             return Kb
 
+        def blocks(starts):
+            stop = starts.stop
+            return [(r0, min(stop, r0 + block)) for r0 in starts]
+
         def matvec(W):
             Wc = W - torch.mean(W, dim=0, keepdim=True)
-            U = torch.cat([rows(r0) @ Wc for r0 in starts])
+            U = torch.cat([
+                (rows(Xd, r0, r1) @ Wc.to(dev)).to(W.device)
+                for dev, Xd, starts in parts for r0, r1 in blocks(starts)
+            ])
             U = U - torch.mean(U, dim=0, keepdim=True)
             return U + _SHIFT * W
 
         def row_sums():
-            return torch.cat([torch.sum(rows(r0), dim=1) for r0 in starts])
+            return torch.cat([
+                torch.sum(rows(Xd, r0, r1), dim=1).to(X.device)
+                for dev, Xd, starts in parts for r0, r1 in blocks(starts)
+            ])
 
         return matvec, row_sums
 

@@ -3,8 +3,11 @@
 Two methods with deterministic signs: an SVD with the ``svd_flip``
 convention, and the covariance method (a d×d ``eigh``) with the
 largest-|entry|-positive convention. The rule that picks between them is
-the JAX package's; the sharded-input branch of that rule waits for the
-multi-device slice.
+the JAX package's. A row-sharded input (what ``parallel.shard_rows``
+returns: per-device row pieces) takes the covariance method, as a sharded
+array does in the JAX package: each piece's device forms its partial Σx and
+XcᵀXc, summed in rank order on the first piece's device, and the embedding
+is gathered there.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from ...base import DRModule
 from ...ops.reductions import svd_flip
+from ...parallel.mesh import ShardedRows
 
 
 def _pca_svd(X: torch.Tensor, n_components: int):
@@ -40,6 +44,30 @@ def _pca_cov(X: torch.Tensor, n_components: int):
     evecs = evecs * torch.where(signs == 0, torch.ones_like(signs), signs)[None, :]
     components = evecs[:, :n_components].T
     embedding = Xc @ components.T
+    return embedding, components, mean
+
+
+def _pca_cov_sharded(pieces: ShardedRows, n_components: int):
+    """Covariance-method PCA of row pieces on their devices."""
+    home = pieces[0].device
+    n = pieces.shape[0]
+
+    def psum(parts):
+        total = None
+        for part in parts:
+            total = part.to(home) if total is None else total + part.to(home)
+        return total
+
+    mean = (psum(torch.sum(p, dim=0, keepdim=True) for p in pieces) / n)
+    centred = [p - mean.to(p.device) for p in pieces]
+    cov = psum(c.T @ c for c in centred) / n
+    evals, evecs = torch.linalg.eigh(cov)
+    evecs = evecs[:, torch.argsort(-evals)]
+    max_abs = torch.argmax(torch.abs(evecs), dim=0)
+    signs = torch.sign(evecs[max_abs, torch.arange(evecs.shape[1], device=home)])
+    evecs = evecs * torch.where(signs == 0, torch.ones_like(signs), signs)[None, :]
+    components = evecs[:, :n_components].T
+    embedding = torch.cat([(c @ components.T.to(c.device)).to(home) for c in centred])
     return embedding, components, mean
 
 
@@ -82,10 +110,15 @@ class PCA(DRModule):
             return self.method
         # Tall matrices: the d×d eigh is far cheaper than an n×d SVD.
         tall = X.shape[0] > 8 * X.shape[1] and X.shape[0] > 4096
-        return "covariance" if tall else "svd"
+        return "covariance" if (isinstance(X, ShardedRows) or tall) else "svd"
 
     def _fit_transform(self, X: torch.Tensor, y: Optional[Any] = None) -> torch.Tensor:
         method = self._resolve_method(X)
+        if isinstance(X, ShardedRows):
+            if method == "covariance":
+                embedding, self.components_, self.mean_ = _pca_cov_sharded(X, self.n_components)
+                return embedding
+            X = torch.cat([p.to(X[0].device) for p in X])
         if method == "svd":
             embedding, self.components_, self.mean_ = _pca_svd(X, self.n_components)
         elif method == "covariance":

@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel torchdr_tpu/ops/pallas/reduce_kernel.py
-// (rowlse_bwd_pallas_general / _bwd_kernel), through its square wrapper
-// rowlse_bwd_pallas. Given Z (n, d), the forward's out = lse (n,) and its
+// (rowlse_bwd_pallas_general / _bwd_kernel), in its square form through
+// the wrapper rowlse_bwd_pallas. Given Z (n, d), the forward's out = lse (n,) and its
 // cotangent g (n,), the TPU kernel recomputes each tile's weights
 //
 //   c_ij = g_i * exp(log k_ij - lse_i) * dlog k / dd^2
@@ -68,6 +68,25 @@
 // a contraction of depth d <= 8, TF32 forbidden for distances, the cost in
 // the kernel value and not in the gram, and an input of 160 KB.
 //
+// The general form (entry point rowlse_bwd_general) takes a query shard
+// Zq (m rows, global ids row_off + i) against the first n_cols rows of Zdb,
+// and returns the TPU kernel's two outputs, dZq (m, d) and dZdb (n_cols,
+// d). The two do not combine there, so it makes two launches of the same
+// row-wise, atomic-free pair loop with one-sided weights (kSides):
+//
+//   pass A, rows Zq, columns Zdb, the row's weight only (u_i, or g_i and
+//     lse_i): dZq_i = 2 sum_j c_ij (zq_i - zdb_j);
+//   pass B, rows Zdb, columns Zq staged with their weights (the shard's
+//     global ids as column ids): dZdb_j = 2 sum_i c_ij (zdb_j - zq_i).
+//
+// Together they evaluate the 2 m n_cols ordered pairs that the TPU kernel
+// does, and need none of its (query tiles, n_db, d) partial buffer. The
+// square form is the same loop with both weights (c_mj + c_jm), row and
+// column ids offset by 0. A term whose row and column global ids are equal
+// is zeroed in all forms. Each pass has its own chunk partials and merge,
+// summed in a fixed order, so a result repeats bit for bit. The wrapper
+// passes only the rows and columns whose global ids lie below n_total.
+//
 // Accumulation as in rowlse_fwd.cu: each staged tile of at most kTile = 256
 // columns is summed in float32 and added to double accumulators. The terms
 // of a force have both signs and partly cancel, so the error is relative to
@@ -111,10 +130,16 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // Student: u_i = -g_i e^(-lse_i).
 __device__ __forceinline__ float student_weight(float g, float lse) { return -g * expf(-lse); }
 
+// Which weights a pair's coefficient takes: the row's and the column's
+// (the square form), the row's only (pass A) or the column's only (pass B).
+constexpr int kRowSide = 1;
+constexpr int kColSide = 2;
+constexpr int kBothSides = kRowSide | kColSide;
+
 // G staged columns, starting at cols (global column j), against the
 // thread's R rows; wi is u_i (student) or g_i (gaussian), li is lse_i. The
 // gaussian sums carry the opposite sign, which the caller takes back.
-template <int D, int G, bool kGaussian, bool kDiag>
+template <int D, int G, bool kGaussian, bool kDiag, int kSides>
 __device__ __forceinline__ void pair_group(const float* cols, int j,
                                            const float (&zi)[Shape<D>::kRows][D],
                                            const float (&wi)[Shape<D>::kRows],
@@ -149,7 +174,9 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
           s = fmaf(diff[c], diff[c], s);
         }
         const float q = rcp_approx(s);
-        coef = (wi[r] + rec[u][D]) * (q * q);
+        const float w = kSides == kBothSides ? wi[r] + rec[u][D]
+                        : kSides == kRowSide ? wi[r] : rec[u][D];
+        coef = w * (q * q);
       } else {
         diff[0] = zi[r][0] - rec[u][0];
         float s = diff[0] * diff[0];  // d^2
@@ -158,9 +185,15 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
           diff[c] = zi[r][c] - rec[u][c];
           s = fmaf(diff[c], diff[c], s);
         }
-        const float ei = ex2_approx((s + li[r]) * -kLog2e);
-        const float ej = ex2_approx((s + rec[u][D + 1]) * -kLog2e);
-        coef = fmaf(wi[r], ei, rec[u][D] * ej);
+        if (kSides == kBothSides) {
+          const float ei = ex2_approx((s + li[r]) * -kLog2e);
+          const float ej = ex2_approx((s + rec[u][D + 1]) * -kLog2e);
+          coef = fmaf(wi[r], ei, rec[u][D] * ej);
+        } else if (kSides == kRowSide) {
+          coef = wi[r] * ex2_approx((s + li[r]) * -kLog2e);
+        } else {
+          coef = rec[u][D] * ex2_approx((s + rec[u][D + 1]) * -kLog2e);
+        }
       }
       if (kDiag) coef = (j + u == row[r]) ? 0.0f : coef;
 #pragma unroll
@@ -171,7 +204,7 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
 
 // One staged tile of len <= kTile columns: a float32 run per row and
 // coordinate, added to the double sums at its end.
-template <int D, bool kGaussian, bool kDiag>
+template <int D, bool kGaussian, bool kDiag, int kSides>
 __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
                                           const float (&zi)[Shape<D>::kRows][D],
                                           const float (&wi)[Shape<D>::kRows],
@@ -188,9 +221,9 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
   int t = 0;
   for (; t + kUnroll <= len; t += kUnroll)
-    pair_group<D, kUnroll, kGaussian, kDiag>(cols + t * P, j0 + t, zi, wi, li, row, a);
+    pair_group<D, kUnroll, kGaussian, kDiag, kSides>(cols + t * P, j0 + t, zi, wi, li, row, a);
   for (; t < len; ++t)
-    pair_group<D, 1, kGaussian, kDiag>(cols + t * P, j0 + t, zi, wi, li, row, a);
+    pair_group<D, 1, kGaussian, kDiag, kSides>(cols + t * P, j0 + t, zi, wi, li, row, a);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -199,11 +232,16 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
 }
 
-template <int D, bool kGaussian>
+// Rows: m rows of Zr (global ids row_off + i) with their g and lse; columns:
+// n_cols rows of Zc (global ids col_off + j) with theirs. The weights a
+// side does not take are not read (their pointers may be null).
+template <int D, bool kGaussian, int kSides>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__ lse,
-                          const float* __restrict__ g, double* __restrict__ part, int n,
-                          int chunk) {
+rowlse_bwd_partial_kernel(const float* __restrict__ Zr, const float* __restrict__ lse_r,
+                          const float* __restrict__ g_r, const float* __restrict__ Zc,
+                          const float* __restrict__ lse_c, const float* __restrict__ g_c,
+                          double* __restrict__ part, int m, int n_cols, int row_off,
+                          int col_off, int chunk) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   extern __shared__ float4 staged[];
@@ -211,46 +249,59 @@ rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__
 
   const int r0 = blockIdx.x * (R * kThreads);
   const int c0 = blockIdx.y * chunk;
-  const int c1 = min(n, c0 + chunk);
+  const int c1 = min(n_cols, c0 + chunk);
   for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
     const int j = c0 + t;
 #pragma unroll
-    for (int c = 0; c < D; ++c) cols[t * P + c] = Z[static_cast<size_t>(j) * D + c];
-    cols[t * P + D] = kGaussian ? g[j] : student_weight(g[j], lse[j]);
-    cols[t * P + D + 1] = lse[j];
+    for (int c = 0; c < D; ++c) cols[t * P + c] = Zc[static_cast<size_t>(j) * D + c];
+    if (kSides & kColSide) {
+      cols[t * P + D] = kGaussian ? g_c[j] : student_weight(g_c[j], lse_c[j]);
+      cols[t * P + D + 1] = lse_c[j];
+    } else {
+      cols[t * P + D] = 0.0f;
+      cols[t * P + D + 1] = 0.0f;
+    }
   }
 
-  int row[R];  // the ragged last row tile: rows >= n are computed and not written
+  // global row ids, which the diagonal test compares with column ids; the
+  // ragged last row tile: rows >= m are computed and not written
+  int row[R];
   float zi[R][D], wi[R], li[R];
   double acc[R][D];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    row[r] = r0 + r * kThreads + threadIdx.x;
-    const bool live = row[r] < n;
+    const int i = r0 + r * kThreads + threadIdx.x;
+    row[r] = row_off + i;
+    const bool live = i < m;
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      zi[r][c] = live ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+      zi[r][c] = live ? Zr[static_cast<size_t>(i) * D + c] : 0.0f;
       acc[r][c] = 0.0;
     }
-    li[r] = live ? lse[row[r]] : 0.0f;
-    wi[r] = !live ? 0.0f : kGaussian ? g[row[r]] : student_weight(g[row[r]], li[r]);
+    const bool weighted = live && (kSides & kRowSide);
+    li[r] = weighted ? lse_r[i] : 0.0f;
+    wi[r] = !weighted ? 0.0f : kGaussian ? g_r[i] : student_weight(g_r[i], li[r]);
   }
   __syncthreads();
 
+  const int g0 = row_off + r0;  // the block's first global row id
   for (int j0 = c0; j0 < c1; j0 += kTile) {
     const int len = min(kTile, c1 - j0);
     const float* tile = cols + (j0 - c0) * P;
-    // only a tile whose columns meet the block's rows can hold a j == m term
-    if (j0 < r0 + R * kThreads && r0 < j0 + len)
-      pair_tile<D, kGaussian, true>(tile, j0, len, zi, wi, li, row, acc);
+    const int gj0 = col_off + j0;  // the tile's first global column id
+    // only a tile whose global columns meet the block's global rows can
+    // hold a term of equal ids
+    if (gj0 < g0 + R * kThreads && g0 < gj0 + len)
+      pair_tile<D, kGaussian, true, kSides>(tile, gj0, len, zi, wi, li, row, acc);
     else
-      pair_tile<D, kGaussian, false>(tile, j0, len, zi, wi, li, row, acc);
+      pair_tile<D, kGaussian, false, kSides>(tile, gj0, len, zi, wi, li, row, acc);
   }
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (row[r] < n) {
-      const size_t at = (static_cast<size_t>(blockIdx.y) * n + row[r]) * D;
+    const int i = row[r] - row_off;
+    if (i < m) {
+      const size_t at = (static_cast<size_t>(blockIdx.y) * m + i) * D;
 #pragma unroll
       for (int c = 0; c < D; ++c) part[at + c] = acc[r][c];
     }
@@ -267,23 +318,48 @@ __global__ void rowlse_bwd_merge_kernel(const double* __restrict__ part,
   out[e] = static_cast<float>(2.0 * s);
 }
 
-template <int D>
-int launch(const float* Z, const float* lse, const float* g, float* out, double* part, int n,
-           int n_chunks, int chunk, bool gaussian, cudaStream_t stream) {
+// One pass: the partial kernel over (row tiles x column chunks), then the
+// merge of its chunk partials into out (m, d).
+template <int D, int kSides>
+int pass(const float* Zr, const float* lse_r, const float* g_r, const float* Zc,
+         const float* lse_c, const float* g_c, float* out, double* part, int m, int n_cols,
+         int row_off, int col_off, int n_chunks, int chunk, bool gaussian,
+         cudaStream_t stream) {
+  if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
-  const dim3 grid((n + rows - 1) / rows, n_chunks);
+  const dim3 grid((m + rows - 1) / rows, n_chunks);
   if (gaussian) {
-    rowlse_bwd_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, lse, g, part, n, chunk);
+    rowlse_bwd_partial_kernel<D, true, kSides><<<grid, kThreads, staged_bytes, stream>>>(
+        Zr, lse_r, g_r, Zc, lse_c, g_c, part, m, n_cols, row_off, col_off, chunk);
   } else {
-    rowlse_bwd_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, lse, g, part, n, chunk);
+    rowlse_bwd_partial_kernel<D, false, kSides><<<grid, kThreads, staged_bytes, stream>>>(
+        Zr, lse_r, g_r, Zc, lse_c, g_c, part, m, n_cols, row_off, col_off, chunk);
   }
-  const int nd = n * D;
+  const int nd = m * D;
   rowlse_bwd_merge_kernel<<<(nd + 255) / 256, 256, 0, stream>>>(part, out, nd, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int square(const float* Z, const float* lse, const float* g, float* out, double* part, int n,
+           int n_chunks, int chunk, bool gaussian, cudaStream_t stream) {
+  return pass<D, kBothSides>(Z, lse, g, Z, lse, g, out, part, n, n, 0, 0, n_chunks, chunk,
+                             gaussian, stream);
+}
+
+template <int D>
+int general(const float* Zq, const float* Zdb, const float* lse, const float* g, float* dzq,
+            float* dzdb, double* part, int m, int n_cols, int row_off, int n_chunks_a,
+            int chunk_a, int n_chunks_b, int chunk_b, bool gaussian, cudaStream_t stream) {
+  const int rc = pass<D, kRowSide>(Zq, lse, g, Zdb, nullptr, nullptr, dzq, part, m, n_cols,
+                                   row_off, 0, n_chunks_a, chunk_a, gaussian, stream);
+  if (rc != 0) return rc;
+  double* part_b = part + static_cast<size_t>(n_chunks_a) * m * D;
+  return pass<D, kColSide>(Zdb, nullptr, nullptr, Zq, lse, g, dzdb, part_b, n_cols, m, 0,
+                           row_off, n_chunks_b, chunk_b, gaussian, stream);
 }
 
 }  // namespace
@@ -297,8 +373,6 @@ extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* o
                           void* part, int n, int d, int n_chunks, int chunk,
                           int gaussian, void* stream) {
   if (n <= 0) return 0;
-  if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto* z = static_cast<const float*>(Z);
   const auto* l = static_cast<const float*>(lse);
   const auto* gp = static_cast<const float*>(g);
@@ -307,14 +381,52 @@ extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* o
   const bool gs = gaussian != 0;
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 2: return launch<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 3: return launch<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 4: return launch<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 5: return launch<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 6: return launch<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 7: return launch<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 8: return launch<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 1: return square<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 2: return square<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 3: return square<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 4: return square<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 5: return square<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 6: return square<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 7: return square<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 8: return square<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The general form: Zq (m, d) with its lse (m,) and g (m,) holds the rows
+// of global ids row_off + i; Zdb's first n_cols rows are the columns. Writes
+// dzq (m, d) and dzdb (n_cols, d). part is scratch of (n_chunks_a m +
+// n_chunks_b n_cols) d doubles: pass A's chunks cut the n_cols columns,
+// pass B's the m rows of Zq. Every row and column passed is live.
+extern "C" int rowlse_bwd_general(const void* Zq, const void* Zdb, const void* lse,
+                                  const void* g, void* dzq, void* dzdb, void* part, int m,
+                                  int n_cols, int row_off, int d, int n_chunks_a, int chunk_a,
+                                  int n_chunks_b, int chunk_b, int gaussian, void* stream) {
+  if (m <= 0 || n_cols <= 0) return 0;
+  if (row_off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* zq = static_cast<const float*>(Zq);
+  const auto* zd = static_cast<const float*>(Zdb);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* gp = static_cast<const float*>(g);
+  auto* oq = static_cast<float*>(dzq);
+  auto* od = static_cast<float*>(dzdb);
+  auto* p = static_cast<double*>(part);
+  const bool gs = gaussian != 0;
+  auto st = static_cast<cudaStream_t>(stream);
+#define TDR_GENERAL(D)                                                                      \
+  case D:                                                                                   \
+    return general<D>(zq, zd, l, gp, oq, od, p, m, n_cols, row_off, n_chunks_a, chunk_a, \
+                      n_chunks_b, chunk_b, gs, st);
+  switch (d) {
+    TDR_GENERAL(1)
+    TDR_GENERAL(2)
+    TDR_GENERAL(3)
+    TDR_GENERAL(4)
+    TDR_GENERAL(5)
+    TDR_GENERAL(6)
+    TDR_GENERAL(7)
+    TDR_GENERAL(8)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TDR_GENERAL
 }

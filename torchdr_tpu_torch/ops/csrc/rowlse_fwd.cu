@@ -1,13 +1,24 @@
 // Row log-sum of the pairwise embedding kernel (K2) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel torchdr_tpu/ops/pallas/reduce_kernel.py
-// (rowlse_fwd_pallas_general / _fwd_kernel), through its square wrapper
-// rowlse_fwd_pallas: for the embedding Z (n, d),
+// (rowlse_fwd_pallas_general / _fwd_kernel), in its square form through
+// the wrapper rowlse_fwd_pallas: for the embedding Z (n, d),
 //
 //   out_i = log sum_{j < n, j != i} k(||z_i - z_j||^2)
 //
 // with the student kernel k = 1 / (1 + d^2) or the gaussian kernel
 // k = exp(-d^2). The diagonal term is dropped when exclude_diag is set.
+//
+// The general form (entry point rowlse_fwd_general) takes a query shard:
+// m rows of Zq whose global ids are row_off + i, against the first n_cols
+// rows of Zdb, and drops the term whose column id equals the row's global
+// id. The wrapper narrows m and n_cols to the rows and columns whose global
+// ids lie below n_total, and fills the rows past it itself. Its kernel
+// (rowlse_shard_kernel) is the square one with the row offset, two inputs
+// and the two counts; both share the tile loop (pair_tile, pair_group). With
+// a shard of m << n rows (m = 2,500 of n = 10,000 on a 4-way mesh) the grid
+// has fewer row tiles and the wrapper cuts the columns into more chunks, to
+// keep whole waves.
 //
 // Bound. The kernel reads Z (n d floats) and writes n floats: 0.12 MB at
 // n = 10,000, d = 2, a few hundredths of a microsecond of memory time. The
@@ -300,6 +311,71 @@ rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
   }
 }
 
+// The general form: rows are the m rows of Zq, global ids row_off + i;
+// columns the n_cols rows of Zdb, global ids j. The same tiles, staging and
+// accumulation as the square kernel above, which stays a kernel of its own:
+// a kernel serving both forms (the offset and the row count in registers, or
+// even known to the compiler at 0) ran the square gaussian mode slower at
+// n = 50,000 (PERF.md section 6).
+template <int D, bool kGaussian>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
+                    double* __restrict__ part_s, double* __restrict__ part_c, int m, int n_cols,
+                    int row_off, int chunk, int exclude_diag) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  extern __shared__ float4 staged[];
+  float* cols = reinterpret_cast<float*>(staged);
+
+  const int r0 = blockIdx.x * (R * kThreads);
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(n_cols, c0 + chunk);
+  for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) cols[t * P + c] = Zdb[static_cast<size_t>(c0 + t) * D + c];
+  }
+
+  // global row ids, which the diagonal test compares with column ids; the
+  // ragged last row tile: rows >= m are computed and not written
+  int row[R];
+  float zi[R][D];
+  RowState<R> st;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r0 + r * kThreads + threadIdx.x;
+    row[r] = row_off + i;
+#pragma unroll
+    for (int c = 0; c < D; ++c) zi[r][c] = i < m ? Zq[static_cast<size_t>(i) * D + c] : 0.0f;
+    st.s[r] = 0.0f;
+    st.S[r] = 0.0;
+    st.shift[r] = kNoTerm * kLog2e;
+    st.move_below[r] = kNoTerm;
+  }
+  __syncthreads();
+
+  const int g0 = row_off + r0;  // the block's first global row id
+  for (int j0 = c0; j0 < c1; j0 += kTile) {
+    const int len = min(kTile, c1 - j0);
+    const float* tile = cols + (j0 - c0) * P;
+    // only a tile whose columns meet the block's global rows can hold a
+    // diagonal term
+    if (exclude_diag && j0 < g0 + R * kThreads && g0 < j0 + len)
+      pair_tile<D, kGaussian, true>(tile, j0, len, zi, row, st);
+    else
+      pair_tile<D, kGaussian, false>(tile, j0, len, zi, row, st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row[r] - row_off;
+    if (i < m) {
+      const size_t at = static_cast<size_t>(blockIdx.y) * m + i;
+      part_s[at] = st.S[r];
+      if (kGaussian) part_c[at] = static_cast<double>(st.shift[r]);
+    }
+  }
+}
+
 // out_i = log(sum_k S_ki) (student), or, with each chunk's sum S_ki of
 // 2^(c_ki - d^2 log2 e) and c_i = min_k c_ki, (log2(sum_k S_ki 2^(c_i - c_ki))
 // - c_i) ln 2 (gaussian); -inf for a row with no term.
@@ -329,24 +405,60 @@ __global__ void rowlse_merge_kernel(const double* __restrict__ part_s,
 }
 
 template <int D>
-int launch(const float* Z, float* out, double* part, int n, int n_chunks, int chunk,
-           bool gaussian, int exclude_diag, cudaStream_t stream) {
+int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, int n_cols,
+           int row_off, int n_chunks, int chunk, bool gaussian, int exclude_diag,
+           cudaStream_t stream) {
   const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
-  const dim3 grid((n + rows - 1) / rows, n_chunks);
-  const int merge_blocks = (n + 255) / 256;
-  double* part_c = part + static_cast<size_t>(n_chunks) * n;
+  const dim3 grid((m + rows - 1) / rows, n_chunks);
+  const int merge_blocks = (m + 255) / 256;
+  double* part_c = part + static_cast<size_t>(n_chunks) * m;
+  const bool square = Zq == Zdb && m == n_cols && row_off == 0;
   if (gaussian) {
-    rowlse_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, part, part_c, n, chunk, exclude_diag);
-    rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, n, n_chunks);
+    if (square)
+      rowlse_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, part, part_c, m, chunk, exclude_diag);
+    else
+      rowlse_shard_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, Zdb, part, part_c, m, n_cols, row_off, chunk, exclude_diag);
+    rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
   } else {
-    rowlse_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, part, part_c, n, chunk, exclude_diag);
-    rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, n, n_chunks);
+    if (square)
+      rowlse_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, part, part_c, m, chunk, exclude_diag);
+    else
+      rowlse_shard_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, Zdb, part, part_c, m, n_cols, row_off, chunk, exclude_diag);
+    rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int n_cols,
+             int row_off, int d, int n_chunks, int chunk, int gaussian, int exclude_diag,
+             void* stream) {
+  if (m <= 0) return 0;
+  if (n_cols <= 0 || n_chunks <= 0 || chunk <= 0 ||
+      static_cast<long long>(n_chunks) * chunk < n_cols || row_off < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* zq = static_cast<const float*>(Zq);
+  const auto* zd = static_cast<const float*>(Zdb);
+  auto* o = static_cast<float*>(out);
+  auto* p = static_cast<double*>(part);
+  const bool g = gaussian != 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: return launch<1>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 2: return launch<2>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 3: return launch<3>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 4: return launch<4>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 5: return launch<5>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 6: return launch<6>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 7: return launch<7>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    case 8: return launch<8>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -358,23 +470,17 @@ int launch(const float* Z, float* out, double* part, int n, int n_chunks, int ch
 // must fit kMaxStaged bytes. Returns the first CUDA error (0 on success).
 extern "C" int rowlse_fwd(const void* Z, void* out, void* part, int n, int d, int n_chunks,
                           int chunk, int gaussian, int exclude_diag, void* stream) {
-  if (n <= 0) return 0;
-  if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* z = static_cast<const float*>(Z);
-  auto* o = static_cast<float*>(out);
-  auto* p = static_cast<double*>(part);
-  const bool g = gaussian != 0;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: return launch<1>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 2: return launch<2>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 3: return launch<3>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 4: return launch<4>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 5: return launch<5>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 6: return launch<6>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 7: return launch<7>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    case 8: return launch<8>(z, o, p, n, n_chunks, chunk, g, exclude_diag, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(Z, Z, out, part, n, n, 0, d, n_chunks, chunk, gaussian, exclude_diag, stream);
+}
+
+// The general form: Zq (m, d) holds the rows of global ids row_off + i,
+// Zdb's first n_cols rows (n_cols, d) are the columns; out (m,); part as
+// above with m in place of n, and chunks over the n_cols columns. Every row
+// and column passed is live: the caller leaves out those whose global id
+// is at or past n_total.
+extern "C" int rowlse_fwd_general(const void* Zq, const void* Zdb, void* out, void* part, int m,
+                                  int n_cols, int row_off, int d, int n_chunks, int chunk,
+                                  int gaussian, int exclude_diag, void* stream) {
+  return dispatch(Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian,
+                  exclude_diag, stream);
 }

@@ -28,6 +28,27 @@ Each launches its kernel for a CUDA tensor and takes its plain version
 (:func:`rowlse_fwd_plain`, :func:`rowlse_bwd_plain`: the JAX package's
 blockwise XLA tier, by direct differences as the kernels form them) only
 for a CPU tensor. Each counts its launches in ``.launches``.
+
+The general form, with the TPU kernels' signature, takes a query shard Zq
+(m, d) whose rows have the global ids ``row_offset + i``, the database Zdb
+(n_db, d), and ``n_total``: rows and columns whose global id is at or past
+it are masked. It serves the row-sharded row log-sum
+(``ops/reduce.pairwise_logkernel_rowlse_sharded``):
+
+- :func:`rowlse_fwd_general` gives out_i = log Σ_{j<n_total, j≠row_offset+i}
+  k(‖zq_i − zdb_j‖²), −inf for a row past ``n_total``;
+- :func:`rowlse_bwd_general` gives (dZq, dZdb): dZq_i = 2 Σ_j c_ij (zq_i −
+  zdb_j) and dZdb_j = 2 Σ_i c_ij (zdb_j − zq_i), with the one-sided
+  c_ij = −g_i e^(−lse_i) q_ij² or −g_i e^(−d²_ij − lse_i).
+
+They launch the same kernels as the square form (their own C entry points),
+count their launches apart (``rowlse_fwd_general.launches``,
+``rowlse_bwd_general.launches``), and take their plain versions
+(:func:`rowlse_fwd_general_plain`, :func:`rowlse_bwd_general_plain`: the
+JAX package's ``_rowlse_fwd_general`` and ``_rowlse_bwd_general``) only for
+CPU tensors. The kernels read no row of Zdb at or past ``min(n_db,
+n_total)`` and no row of Zq past ``n_total``: the wrappers pass the live
+rows and columns only and fill the others (−inf, zeros).
 """
 
 from __future__ import annotations
@@ -87,16 +108,18 @@ def column_bytes(d: int, backward: bool) -> int:
     return 4 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8)
 
 
-def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False):
+def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False,
+                  n_rows: int | None = None):
     """(n_chunks, chunk): column chunk k covers [k·chunk, min(n, (k+1)·chunk)).
 
     The (row tiles × column chunks) grid fills whole waves of resident
     blocks and never a little more than one (blocks are equal, so a few
     blocks over a wave would cost a whole one): one wave where a chunk then
     fits the staging budget, else the fewest waves that do. A chunk holds
-    at least ``_MIN_CHUNK`` columns, unless n is smaller.
+    at least ``_MIN_CHUNK`` columns, unless n is smaller. The grid has
+    ``n_rows`` rows (default n, the square form): fewer rows, more chunks.
     """
-    row_tiles = -(-n // rows_per_block(d))
+    row_tiles = -(-(n if n_rows is None else n_rows) // rows_per_block(d))
     wave = sm_count * _BLOCKS_PER_SM
     fewest = -(-n // (_STAGED_BYTES // column_bytes(d, backward)))
     waves = max(1, -(-row_tiles * fewest // wave))
@@ -169,6 +192,155 @@ def rowlse_bwd_plain(Z, row_lse, g, kernel="student", block_size=1024):
     return out
 
 
+def _live(m: int, n_db: int, row_offset: int, n_total: int):
+    """(rows of the shard, columns of the database) whose global ids lie
+    below ``n_total``: a prefix of each."""
+    return max(0, min(m, n_total - row_offset)), min(n_db, n_total)
+
+
+def _check_general(Zq, Zdb, row_offset, n_total, kernel):
+    _check_z(Zq, kernel)
+    _check_z(Zdb, kernel)
+    if Zq.shape[1] != Zdb.shape[1] or Zq.device != Zdb.device:
+        raise ValueError("Zq and Zdb must have the same width and device.")
+    if int(row_offset) < 0 or int(n_total) < 0:
+        raise ValueError("row_offset and n_total must be non-negative.")
+
+
+def rowlse_fwd_general_plain(Zq, Zdb, row_offset, n_total, kernel="student", exclude_diag=True,
+                             block_size=1024):
+    """K2's general function in plain PyTorch: the JAX package's
+    ``_rowlse_fwd_general`` (row blocks of the shard, max-shifted
+    log-sum-exp), by direct differences, the sums over j in float64; −inf
+    for a row whose global id is at or past ``n_total``."""
+    m = Zq.shape[0]
+    m_live, n_cols = _live(m, Zdb.shape[0], int(row_offset), int(n_total))
+    out = torch.full((m,), float("-inf"), dtype=Zq.dtype, device=Zq.device)
+    Zc = Zdb[:n_cols]
+    block = min(block_size, max(8, m))
+    for r0 in range(0, m_live, block):
+        Zb = Zq[r0 : min(m_live, r0 + block)]
+        sq, _ = _sq_block(Zb, Zc)
+        logq = -torch.log1p(sq) if kernel == "student" else -sq
+        if exclude_diag:
+            mask = _diag(int(row_offset) + r0, Zb.shape[0], n_cols, Zq.device)
+            logq = torch.where(mask, torch.full_like(logq, float("-inf")), logq)
+        mx = torch.amax(logq, dim=1, keepdim=True)
+        mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))  # a row with no term
+        s = torch.exp(logq - mx).double().sum(dim=1)
+        out[r0 : r0 + Zb.shape[0]] = (torch.log(s) + mx[:, 0].double()).float()
+    return out
+
+
+def rowlse_bwd_general_plain(Zq, Zdb, row_offset, n_total, row_lse, g, kernel="student",
+                             block_size=1024):
+    """K3's general function in plain PyTorch: the JAX package's
+    ``_rowlse_bwd_general``, over row blocks of the shard: the one-sided
+    coefficients in float32 as the kernel forms them, the sums over j (dZq)
+    and over i (dZdb) in float64. Returns (dZq (m, d), dZdb (n_db, d))."""
+    m, n_db = Zq.shape[0], Zdb.shape[0]
+    m_live, n_cols = _live(m, n_db, int(row_offset), int(n_total))
+    dZq = torch.zeros_like(Zq)
+    dZdb = torch.zeros((n_db, Zdb.shape[1]), dtype=torch.float64, device=Zdb.device)
+    Zc = Zdb[:n_cols]
+    block = min(block_size, max(8, m))
+    for r0 in range(0, m_live, block):
+        Zb = Zq[r0 : min(m_live, r0 + block)]
+        b = Zb.shape[0]
+        sq, diff = _sq_block(Zb, Zc)
+        lse_b, g_b = row_lse[r0 : r0 + b, None], g[r0 : r0 + b, None]
+        if kernel == "student":
+            q = 1.0 / (1.0 + sq)
+            coef = -(g_b * torch.exp(-lse_b)) * (q * q)
+        else:
+            coef = -(g_b * torch.exp(-sq - lse_b))
+        mask = _diag(int(row_offset) + r0, b, n_cols, Zq.device)
+        coef = torch.where(mask, torch.zeros_like(coef), coef)
+        terms = (coef[:, :, None] * diff).double()
+        dZq[r0 : r0 + b] = (2.0 * terms.sum(dim=1)).float()
+        dZdb[:n_cols] -= 2.0 * terms.sum(dim=0)
+    return dZq, dZdb.float()
+
+
+def rowlse_fwd_general(Zq, Zdb, row_offset, n_total, kernel="student", exclude_diag=True,
+                       block_size=1024):
+    """Row log-sum of a query shard against the database: (m,) float32.
+
+    ``row_offset`` is the global id of Zq's first row; rows and columns of
+    global id ≥ ``n_total`` are masked (a masked row reads −inf).
+    ``block_size`` sets the row blocks of the plain version.
+    """
+    _check_general(Zq, Zdb, row_offset, n_total, kernel)
+    if Zq.device.type == "cpu":
+        return rowlse_fwd_general_plain(Zq, Zdb, row_offset, n_total, kernel, exclude_diag,
+                                        block_size)
+    _check_cuda(Zq, "rowlse_fwd_general")
+    fn = load_function("rowlse_fwd", "rowlse_fwd_general")
+    (m, d), row_offset = Zq.shape, int(row_offset)
+    m_live, n_cols = _live(m, Zdb.shape[0], row_offset, int(n_total))
+    out = torch.full((m,), float("-inf"), dtype=torch.float32, device=Zq.device)
+    if m_live == 0:
+        return out
+    if n_cols == 0:
+        raise ValueError("rowlse_fwd_general: no column below n_total.")
+    gaussian = kernel == "gaussian"
+    n_chunks, chunk = column_chunks(n_cols, sm_count(Zq.device.index), d, backward=False,
+                                    n_rows=m_live)
+    part = torch.empty((2 if gaussian else 1, n_chunks, m_live), dtype=torch.float64,
+                       device=Zq.device)
+    rc = launch(
+        fn, Zq, Zq.data_ptr(), Zdb.data_ptr(), out.data_ptr(), part.data_ptr(),
+        m_live, n_cols, row_offset, d, n_chunks, chunk, int(gaussian), int(bool(exclude_diag)),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rowlse_fwd_general launch failed: cudaError {rc}.")
+    rowlse_fwd_general.launches += 1
+    return out
+
+
+def rowlse_bwd_general(Zq, Zdb, row_offset, n_total, row_lse, g, kernel="student",
+                       exclude_diag=True, block_size=1024):
+    """Gradients of Σ_i g_i · rowlse_fwd_general(Zq, Zdb, ...)_i: (dZq (m, d),
+    dZdb (n_db, d)), the TPU kernel's two outputs.
+
+    A term of equal global ids carries zq_i − zdb_j = 0 when Zq's rows are
+    Zdb's, as in the row-sharded caller, so ``exclude_diag`` does not
+    enter; that term is dropped always. Rows and columns past ``n_total``
+    get zeros. ``block_size`` sets the row blocks of the plain version.
+    """
+    _check_general(Zq, Zdb, row_offset, n_total, kernel)
+    _check_vec("row_lse", row_lse, Zq)
+    _check_vec("g", g, Zq)
+    if Zq.device.type == "cpu":
+        return rowlse_bwd_general_plain(Zq, Zdb, row_offset, n_total, row_lse, g, kernel,
+                                        block_size)
+    _check_cuda(Zq, "rowlse_bwd_general")
+    fn = load_function("rowlse_bwd", "rowlse_bwd_general")
+    (m, d), n_db, row_offset = Zq.shape, Zdb.shape[0], int(row_offset)
+    m_live, n_cols = _live(m, n_db, row_offset, int(n_total))
+    if m_live == 0 or n_cols == 0:
+        return torch.zeros_like(Zq), torch.zeros_like(Zdb)
+    # the kernels write the live rows; the others stay zero
+    dZq = (torch.empty_like if m_live == m else torch.zeros_like)(Zq)
+    dZdb = (torch.empty_like if n_cols == n_db else torch.zeros_like)(Zdb)
+    sms = sm_count(Zq.device.index)
+    # pass A: the shard's rows against the database's columns; pass B the
+    # database's rows against the shard's rows as columns
+    n_chunks_a, chunk_a = column_chunks(n_cols, sms, d, backward=True, n_rows=m_live)
+    n_chunks_b, chunk_b = column_chunks(m_live, sms, d, backward=True, n_rows=n_cols)
+    part = torch.empty(((n_chunks_a * m_live + n_chunks_b * n_cols) * d,), dtype=torch.float64,
+                       device=Zq.device)
+    rc = launch(
+        fn, Zq, Zq.data_ptr(), Zdb.data_ptr(), row_lse.data_ptr(), g.data_ptr(),
+        dZq.data_ptr(), dZdb.data_ptr(), part.data_ptr(), m_live, n_cols, row_offset, d,
+        n_chunks_a, chunk_a, n_chunks_b, chunk_b, int(kernel == "gaussian"),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rowlse_bwd_general launch failed: cudaError {rc}.")
+    rowlse_bwd_general.launches += 1
+    return dZq, dZdb
+
+
 def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     """Row log-sum of the pairwise kernel: (n,) float32.
 
@@ -179,7 +351,7 @@ def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     if Z.device.type == "cpu":
         return rowlse_fwd_plain(Z, kernel, exclude_diag, block_size)
     _check_cuda(Z, "rowlse_fwd")
-    fn = load_function("rowlse_fwd")
+    fn = load_function("rowlse_fwd", "rowlse_fwd")
     n, d = Z.shape
     gaussian = kernel == "gaussian"
     n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=False)
@@ -209,7 +381,7 @@ def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
     if Z.device.type == "cpu":
         return rowlse_bwd_plain(Z, row_lse, g, kernel, block_size)
     _check_cuda(Z, "rowlse_bwd")
-    fn = load_function("rowlse_bwd")
+    fn = load_function("rowlse_bwd", "rowlse_bwd")
     n, d = Z.shape
     n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=True)
     out = torch.empty_like(Z)
@@ -226,3 +398,5 @@ def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
 
 rowlse_fwd.launches = 0
 rowlse_bwd.launches = 0
+rowlse_fwd_general.launches = 0
+rowlse_bwd_general.launches = 0

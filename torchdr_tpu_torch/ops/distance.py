@@ -95,8 +95,13 @@ def knn_graph(
     mode: str = "exact",
     recall_target: float = 0.95,
     db_block: int = 65_536,
+    row_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """kNN graph: for each row of X, the k nearest rows of Y (or X).
+
+    ``row_offset`` says that X's row i is Y's row ``row_offset + i`` (a
+    row shard of Y, ``parallel/knn``): ``exclude_diag`` then masks that
+    column, as it masks the diagonal when Y is None.
 
     Query rows go in blocks of ``block_size``; each block is one float32
     product followed by ``torch.topk``. Databases wider than ``db_block``
@@ -117,7 +122,8 @@ def knn_graph(
     Yc = X if self_mode else Y
     n, m = X.shape[0], Yc.shape[0]
     block = min(block_size, max(8, n))
-    mask_self = exclude_diag and self_mode
+    mask_self = exclude_diag and (self_mode or row_offset is not None)
+    off = int(row_offset or 0)
 
     dists = torch.empty((n, k), dtype=X.dtype, device=X.device)
     indices = torch.empty((n, k), dtype=torch.int32, device=X.device)
@@ -126,7 +132,7 @@ def knn_graph(
         if m <= db_block:
             C = pairwise_block(Xb, Yc, metric, precision)
             if mask_self:
-                _mask_self(C, r0, 0)
+                _mask_self(C, off + r0, 0)
             d, i = torch.topk(C, k, dim=1, largest=False, sorted=True)
         else:
             d = torch.full((Xb.shape[0], k), MASK_VALUE, dtype=X.dtype, device=X.device)
@@ -134,7 +140,7 @@ def knn_graph(
             for c0 in range(0, m, db_block):
                 C = pairwise_block(Xb, Yc[c0 : c0 + db_block], metric, precision)
                 if mask_self:
-                    _mask_self(C, r0, c0)
+                    _mask_self(C, off + r0, c0)
                 dc, ic = torch.topk(
                     C, min(k, C.shape[1]), dim=1, largest=False, sorted=True
                 )

@@ -10,18 +10,35 @@ all on the card.
 On a CUDA tensor both passes are the Hopper kernels at any n (the JAX
 package takes its TPU kernels only from n = 1024, and its XLA tier below);
 on a CPU tensor both are the plain versions, which are the JAX package's
-blockwise XLA tier. The row-sharded variant waits for the multi-GPU slice,
-and the autodiff variant for arbitrary kernels (COSNE's) for the COSNE
-slice.
+blockwise XLA tier.
+
+:func:`pairwise_logkernel_rowlse_sharded` splits the rows over a device
+mesh (``parallel/mesh.Mesh``): each shard's device runs the general K2 on
+its row chunk against the whole Z, and in the backward the general K3,
+whose two outputs form that shard's (n, d) contribution; the contributions
+are summed on Z's device in rank order (the JAX package's psum). The
+autodiff variant for arbitrary kernels (COSNE's) waits for the COSNE slice.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda.reduce_kernel import KERNELS, rowlse_bwd, rowlse_fwd
+from ..parallel.mesh import pad_to_multiple, replicate
+from .cuda.reduce_kernel import (
+    KERNELS,
+    rowlse_bwd,
+    rowlse_bwd_general,
+    rowlse_fwd,
+    rowlse_fwd_general,
+)
 
-__all__ = ["KERNELS", "pairwise_logkernel_rowlse", "pairwise_logkernel_logsumexp"]
+__all__ = [
+    "KERNELS",
+    "pairwise_logkernel_rowlse",
+    "pairwise_logkernel_rowlse_sharded",
+    "pairwise_logkernel_logsumexp",
+]
 
 
 class _PairwiseLogkernelRowlse(torch.autograd.Function):
@@ -50,6 +67,74 @@ def pairwise_logkernel_rowlse(
     repulsion; ``sum(result)`` gives SNE's.
     """
     return _PairwiseLogkernelRowlse.apply(Z.contiguous(), kernel, exclude_diag, block_size)
+
+
+def _shards(Z, mesh):
+    """Per shard: (device, row offset, the padded chunk of Z's rows, Z) on
+    that device. Rows past n are zeros, which the kernels mask (n_total)."""
+    n, d = Z.shape
+    world = len(mesh)
+    n_pad = pad_to_multiple(n, world)
+    chunk = n_pad // world
+    Zp = torch.zeros((n_pad, d), dtype=Z.dtype, device=Z.device)
+    Zp[:n] = Z
+    for r, (dev, Zdb) in enumerate(zip(mesh.devices, replicate(Z, mesh))):
+        yield dev, r * chunk, Zp[r * chunk : (r + 1) * chunk].to(dev), Zdb
+
+
+class _PairwiseLogkernelRowlseSharded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Z, mesh, kernel, exclude_diag, block_size):
+        n = Z.shape[0]
+        parts = [
+            rowlse_fwd_general(Zq, Zdb, off, n, kernel, exclude_diag, block_size).to(Z.device)
+            for _, off, Zq, Zdb in _shards(Z, mesh)
+        ]
+        out = torch.cat(parts)[:n]
+        ctx.save_for_backward(Z, out)
+        ctx.mesh, ctx.kernel = mesh, kernel
+        ctx.exclude_diag, ctx.block_size = exclude_diag, block_size
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        Z, out = ctx.saved_tensors
+        n, world = Z.shape[0], len(ctx.mesh)
+        chunk = pad_to_multiple(n, world) // world
+        lse_p = torch.zeros((chunk * world,), dtype=out.dtype, device=Z.device)
+        g_p = torch.zeros_like(lse_p)
+        lse_p[:n], g_p[:n] = out, g
+        dZ = None
+        for dev, off, Zq, Zdb in _shards(Z, ctx.mesh):
+            dZq, dZdb = rowlse_bwd_general(
+                Zq, Zdb, off, n, lse_p[off : off + chunk].to(dev),
+                g_p[off : off + chunk].contiguous().to(dev), ctx.kernel, ctx.exclude_diag,
+                ctx.block_size,
+            )
+            # this shard's contribution: dZdb, with dZq added at its rows
+            contrib = dZdb.to(Z.device)
+            live = max(0, min(chunk, n - off))
+            contrib[off : off + live] += dZq[:live].to(Z.device)
+            # the psum, in rank order
+            dZ = contrib if dZ is None else dZ + contrib
+        return dZ, None, None, None, None
+
+
+def pairwise_logkernel_rowlse_sharded(
+    Z: torch.Tensor, mesh, kernel: str = "student", exclude_diag: bool = True,
+    block_size: int = 1024,
+) -> torch.Tensor:
+    """Row-wise logsumexp of ``log k(‖z_i − z_j‖²)``, row-sharded over ``mesh``.
+
+    The same function as :func:`pairwise_logkernel_rowlse`. Z (on any
+    device) is padded to a multiple of the world size; shard r computes rows
+    [r·chunk, (r+1)·chunk) on ``mesh.devices[r]`` with the general K2
+    against Z[:n] (the padded rows masked), and in the backward the general
+    K3. The result and the gradient land on Z's device.
+    """
+    return _PairwiseLogkernelRowlseSharded.apply(
+        Z.contiguous(), mesh, kernel, exclude_diag, block_size
+    )
 
 
 def pairwise_logkernel_logsumexp(Z, kernel="student", exclude_diag=True, block_size=1024):

@@ -32,6 +32,47 @@ def symmetric_degrees(indices: torch.Tensor) -> torch.Tensor:
     return out_deg + in_deg
 
 
+def resolve_k_out(indices: torch.Tensor, k_out: int | None) -> Tuple[int, bool]:
+    """(k_out, value_order) of a symmetrization: without ``k_out`` the max
+    symmetric degree rounded up to a multiple of 8 (one host read), capped at
+    a memory budget; ``value_order`` when rows may hold more edges than
+    ``k_out``, which then keep their strongest."""
+    n = indices.shape[0]
+    max_deg = int(symmetric_degrees(indices).max())
+    if k_out is None:
+        k_out = max(8, -(-max_deg // 8) * 8)
+        cap = max(8, (_AUTO_KOUT_BUDGET_ENTRIES // max(1, n)) // 8 * 8)
+        if k_out > cap:
+            warnings.warn(
+                f"[TorchDR-Torch] symmetric degree {max_deg} exceeds the auto "
+                f"width budget at n={n}; capping k_out at {cap} (weakest hub "
+                "edges dropped). Pass k_out to override."
+            )
+            k_out = cap
+    return k_out, k_out < max_deg
+
+
+def pack_rows(u_row, u_col, v_comb, rows: int, k_out: int, value_order: bool, dtypes):
+    """Merged edges (``u_row``, ``u_col`` sorted by (row, column)) packed
+    into ``(rows, k_out)`` values and indices, padded 0 / −1: column order
+    within a row, or strongest first (equal values in column order) under
+    ``value_order``."""
+    device = v_comb.device
+    if value_order:
+        order = torch.argsort(-v_comb, stable=True)
+        order = order[torch.argsort(u_row[order], stable=True)]
+        u_row, u_col, v_comb = u_row[order], u_col[order], v_comb[order]
+    counts = torch.bincount(u_row, minlength=rows)
+    row_start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(u_row.shape[0], device=device) - row_start[u_row]
+    keep = slot < k_out
+    out_vals = torch.zeros((rows, k_out), dtype=dtypes[0], device=device)
+    out_idx = torch.full((rows, k_out), -1, dtype=dtypes[1], device=device)
+    out_vals[u_row[keep], slot[keep]] = v_comb[keep]
+    out_idx[u_row[keep], slot[keep]] = u_col[keep].to(dtypes[1])
+    return out_vals, out_idx
+
+
 def symmetrize_sparse(
     values: torch.Tensor,
     indices: torch.Tensor,
@@ -52,18 +93,7 @@ def symmetrize_sparse(
     if mode not in ("sum", "sum_minus_prod"):
         raise ValueError(f"Unsupported mode {mode!r}")
     n, k = values.shape
-    max_deg = int(symmetric_degrees(indices).max())
-    if k_out is None:
-        k_out = max(8, -(-max_deg // 8) * 8)
-        cap = max(8, (_AUTO_KOUT_BUDGET_ENTRIES // max(1, n)) // 8 * 8)
-        if k_out > cap:
-            warnings.warn(
-                f"[TorchDR-Torch] symmetric degree {max_deg} exceeds the auto "
-                f"width budget at n={n}; capping k_out at {cap} (weakest hub "
-                "edges dropped). Pass k_out to override."
-            )
-            k_out = cap
-    value_order = k_out < max_deg
+    k_out, value_order = resolve_k_out(indices, k_out)
     device = values.device
 
     rows = torch.arange(n, device=device).repeat_interleave(k)
@@ -81,26 +111,8 @@ def symmetrize_sparse(
     vP.index_add_(0, inv[:n_p], v)
     vPT.index_add_(0, inv[n_p:], v)
     v_comb = vP + vPT if mode == "sum" else vP + vPT - vP * vPT
-    u_row = uniq // n
-    u_col = uniq % n
-
-    if value_order:
-        # strongest first within each row; stable sorts keep column order
-        # among equal values
-        order = torch.argsort(-v_comb, stable=True)
-        order = order[torch.argsort(u_row[order], stable=True)]
-        u_row, u_col, v_comb = u_row[order], u_col[order], v_comb[order]
-
-    counts = torch.bincount(u_row, minlength=n)
-    row_start = torch.cumsum(counts, 0) - counts
-    slot = torch.arange(u_row.shape[0], device=device) - row_start[u_row]
-    keep = slot < k_out
-
-    out_vals = torch.zeros((n, k_out), dtype=values.dtype, device=device)
-    out_idx = torch.full((n, k_out), -1, dtype=indices.dtype, device=device)
-    out_vals[u_row[keep], slot[keep]] = v_comb[keep]
-    out_idx[u_row[keep], slot[keep]] = u_col[keep].to(indices.dtype)
-    return out_vals, out_idx
+    return pack_rows(uniq // n, uniq % n, v_comb, n, k_out, value_order,
+                     (values.dtype, indices.dtype))
 
 
 def sparse_to_dense(values: torch.Tensor, indices: torch.Tensor, n_cols: int) -> torch.Tensor:

@@ -41,11 +41,15 @@ def load_reference_state(estimator, arrays: Mapping[str, object]) -> None:
     affinity, a dense affinity's indices) and "init_embedding". A
     negative-sampling state adds the arrays "neg_exclusion" and
     "neg_valid_counts", and a UMAP state the floats "a" and "b". The
-    tensors land on the estimator's device; ``n_samples_in_`` and
-    a root generator are set as a fit would set them.
+    tensors land on the estimator's device (a mesh fit's: the mesh's first
+    device); ``n_samples_in_``, the fit's mesh and a root generator are set
+    as a fit would set them.
     """
-    device = resolve_device(estimator.device)
+    # a mesh fit keeps its state on the mesh's first device
+    mesh = estimator._resolve_mesh()
+    device = resolve_device(estimator.device, mesh)
     estimator.device_ = device
+    estimator._fit_mesh_ = mesh
     for key, attr in {**_STATE, **_OPTIONAL_STATE}.items():
         if key not in arrays and key in _OPTIONAL_STATE:
             continue
