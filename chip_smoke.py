@@ -85,8 +85,12 @@ kernel in one call. With ``--gather`` it builds the gathers alone and runs
 phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
 runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone;
 with ``--spectral``, phase 8 alone; with ``--mesh`` it builds K1, K2 and K3
-and runs phase 9 alone (with the three fits without a mesh beside it). Each
-of these prints no result line.
+and runs phase 9 alone (with the three fits without a mesh beside it). With
+``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
+in phase 3 and the general ones, the sharded row log-sum and its step as in
+phase 9, and stops (~1 min): the quick way to compare two versions of the
+row log-sum kernels in one call, this script being copied into the other
+tree's checkout. Each of these prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -216,6 +220,8 @@ MESH_CASES = (
 # kNN blocks of other heights (another gram algorithm may round the last
 # bit), so the values are held to 1e-6 rather than bit for bit.
 MESH_AFFINITY_TOL = 1e-6
+# kernels one call of the general K3 launches: its pair loop and its merge
+GENERAL_K3_KERNELS = 2
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
 H100_BYTES_PER_S = 3.35e12
 # special-function unit (reciprocal, exp2): 16 results per clock per SM, 132
@@ -281,15 +287,15 @@ def sass_report(libraries) -> None:
 
     def label(mangled):
         m = re.search(r"\d\d((?:rowlse|repulsion|bucket)\w*?kernel)ILi(\d)E(?:Lb([01])E)?"
-                      r"(?:Li(\d)E)?", mangled)
+                      r"(?:Lb([01])E)?", mangled)
         if m is None:
             return mangled
         modes = {"rep": ("", ", masked"), "row": (", student", ", gaussian"),
                  "buc": (", k-steps walked", ", one k-step")}[m.group(1)[:3]]
         mode = "" if m.group(3) is None else modes[int(m.group(3))]
-        # K3's weights: both (square form), the row's (pass A), the column's (pass B)
-        sides = {None: "", "3": "", "1": ", pass A", "2": ", pass B"}[m.group(4)]
-        return f"{m.group(1)}<d={m.group(2)}{mode}{sides}>"
+        # the general K2's sharing of the shard's own block
+        shared = ", own block shared" if m.group(4) == "1" else ""
+        return f"{m.group(1)}<d={m.group(2)}{mode}{shared}>"
 
     for lib in libraries:
         print(f"== {lib.name}")
@@ -306,7 +312,7 @@ def sass_report(libraries) -> None:
                 if not shown(name, ("ILi2E",)):
                     continue
                 instrs = [(int(a, 16), re.sub(r"^@!?U?P\d+\s+", "", t))
-                          for a, t in re.findall(r"/\*([0-9a-f]{4})\*/\s+(.*?);", body)]
+                          for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", body)]
                 loops = [(int(m.group(1), 16), a) for a, t in instrs if t.startswith("BRA")
                          for m in [re.search(r"0x([0-9a-f]+)", t)] if m and int(m.group(1), 16) <= a]
                 for lo, hi in loops:
@@ -530,6 +536,15 @@ def rowlse_general_bound_ms(m: int, n: int, d: int, which: str, kernel: str) -> 
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def shard_kwargs(fn) -> dict:
+    """The keyword by which ``rowlse_fwd_general`` is told that a shard's
+    rows are Z's own (as the row-sharded caller tells it), where the wrapper
+    takes one: an older tree's does not, and runs here unchanged."""
+    import inspect
+
+    return {"shard_of_db": True} if "shard_of_db" in inspect.signature(fn).parameters else {}
+
+
 def mesh_shards(torch, Z, world: int):
     """(offset, padded row chunk) of each shard, as the sharded row log-sum
     cuts Z: rows past n are zeros, which n_total masks."""
@@ -543,7 +558,10 @@ def mesh_shards(torch, Z, world: int):
 def check_general_k2_k3(torch, gen) -> dict:
     """The general K2 and K3 against their plain versions on the card, on
     every shard of MESH_CASES and of the underflowing gaussian grid; each
-    output within TOL_K2 / TOL_K3 as the square kernels are held."""
+    output within TOL_K2 / TOL_K3 as the square kernels are held. K3 is
+    called twice and must give the same bits, and where its wrapper counts
+    the kernels a call launches (``kernel_launches``), it must read
+    GENERAL_K3_KERNELS."""
     from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
         rowlse_bwd_general,
         rowlse_bwd_general_plain,
@@ -562,16 +580,25 @@ def check_general_k2_k3(torch, gen) -> dict:
     for label, Z, kernel in cases:
         n = Z.shape[0]
         for off, Zq in mesh_shards(torch, Z, MESH_WORLD):
-            out = rowlse_fwd_general(Zq, Z, off, n, kernel)
+            out = rowlse_fwd_general(Zq, Z, off, n, kernel, **shard_kwargs(rowlse_fwd_general))
             ref = rowlse_fwd_general_plain(Zq, Z, off, n, kernel)
             live = max(0, min(Zq.shape[0], n - off))
             lse = ref.clone()
             lse[live:] = 0.0
             g_q = (torch.rand((Zq.shape[0],), generator=gen, device=dev) / n).contiguous()
             g_q[live:] = 0.0
+            kernels = getattr(rowlse_bwd_general, "kernel_launches", None)
             dZq, dZdb = rowlse_bwd_general(Zq, Z, off, n, lse, g_q, kernel)
+            if kernels is not None:  # the wrapper counts the kernels a call launched
+                kernels = rowlse_bwd_general.kernel_launches - kernels
+            again = rowlse_bwd_general(Zq, Z, off, n, lse, g_q, kernel)
             rq, rdb = rowlse_bwd_general_plain(Zq, Z, off, n, lse, g_q, kernel)
             torch.cuda.synchronize()
+            if not (torch.equal(again[0], dZq) and torch.equal(again[1], dZdb)):
+                raise AssertionError(f"general K3 {label} at {off}: a second call differs")
+            if kernels not in (None, GENERAL_K3_KERNELS):
+                raise AssertionError(f"general K3 {label} at {off}: {kernels} kernels a call, "
+                                     f"not {GENERAL_K3_KERNELS}")
             e2 = float((out[:live] - ref[:live]).abs().max())
             lim2 = TOL_K2 * max(1.0, float(ref[:live].abs().max()))
             e3 = max(float((dZq - rq).abs().max()), float((dZdb - rdb).abs().max()))
@@ -582,7 +609,8 @@ def check_general_k2_k3(torch, gen) -> dict:
             print(
                 f"general K2/K3 {label}: n={n} d={Z.shape[1]} {kernel} shard at {off} "
                 f"({live} of {Zq.shape[0]} rows live) max|K2-plain|={e2:.3e} (limit {lim2:.1e}) "
-                f"max|K3-plain|={e3:.3e} (limit {lim3:.1e})",
+                f"max|K3-plain|={e3:.3e} (limit {lim3:.1e}); K3 {kernels} kernels a call, "
+                f"the same bits twice",
                 flush=True,
             )
             if not (finite and masked):
@@ -650,7 +678,8 @@ def time_general_k2_k3(torch, gen, mesh, worst) -> dict:
             lse = rowlse_fwd_general_plain(Zq, Z, 0, n, kernel)
             g = (torch.rand((m,), generator=gen, device="cuda") / n).contiguous()
             for which, fn, plain in (
-                ("K2", lambda: rowlse_fwd_general(Zq, Z, 0, n, kernel),
+                ("K2", lambda: rowlse_fwd_general(Zq, Z, 0, n, kernel,
+                                                  **shard_kwargs(rowlse_fwd_general)),
                  lambda: rowlse_fwd_general_plain(Zq, Z, 0, n, kernel)),
                 ("K3", lambda: rowlse_bwd_general(Zq, Z, 0, n, lse, g, kernel),
                  lambda: rowlse_bwd_general_plain(Zq, Z, 0, n, lse, g, kernel)),
@@ -659,12 +688,13 @@ def time_general_k2_k3(torch, gen, mesh, worst) -> dict:
                 device_ms = graph_ms(fn)
                 plain_ms = cuda_time_ms(plain, reps=3 if n == N_TSNE else 1)
                 bound_ms, bound_by = rowlse_general_bound_ms(m, n, d, which, kernel)
+                split = kernel_split_ms(torch, fn)
                 print(f"general {which} time shard ({m} x {n}) d={d} {kernel}: kernel {ms:.4f} ms "
                       f"({device_ms:.4f} ms replayed), plain {plain_ms:.4f} ms, bound "
-                      f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+                      f"{bound_ms:.5f} ms ({bound_by}); by kernel {json.dumps(split)}", flush=True)
                 entry = {"kernel": which, "m": m, "n": n, "d": d, "mode": kernel, "ms": ms,
                          "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
+                         "bound_by": bound_by, "by_kernel_ms": split}
                 times.append(entry)
                 general[which].append(entry)
             # one step of the repulsion: forward and backward, sharded and square
@@ -686,6 +716,33 @@ def time_general_k2_k3(torch, gen, mesh, worst) -> dict:
     print("rowlse_general_times " + json.dumps(times), flush=True)
     return {which: {"shards": MESH_WORLD, "max_abs_err": worst[which], "times": entries}
             for which, entries in general.items()}
+
+
+def kernel_split_ms(torch, fn, calls: int = 20) -> dict:
+    """Device time of one call of ``fn`` by kernel (torch.profiler over
+    ``calls`` calls after a warm-up): the pair loop and the merge of a row
+    log-sum apart. Empty where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    import re
+
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            # the kernel's own name: the last identifier before its template
+            # arguments or parameters ("void (anonymous namespace)::name<...>(...)")
+            names = re.findall(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
+            name = names[1] if names and names[0] == "void" and len(names) > 1 else (
+                names[0] if names else e.key[:40])
+            split[name] = split.get(name, 0.0) + us / 1e3 / calls
+    return split
 
 
 def sorted_rows(torch, P, idx):
@@ -767,6 +824,23 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
     general["K2"]["launches"] = tsne["launches"]["rowlse_fwd_general"]
     general["K3"]["launches"] = tsne["launches"]["rowlse_bwd_general"]
     return general
+
+
+def run_rowlse_kernels(torch, gen) -> None:
+    """The row log-sum kernels alone (``--rowlse``): the square K2 and K3
+    checked and timed as in phase 3, then the general ones checked on every
+    shard, the sharded row log-sum against the square kernels and the
+    general times, as in phase 9. Runs with the wrappers of an older tree
+    too, so that two trees compare in one call."""
+    from torchdr_tpu_torch.parallel import make_mesh
+
+    check_k2_k3(torch, gen)
+    mesh = make_mesh(devices=["cuda:0"] * MESH_WORLD)
+    mesh_gen = torch.Generator(device="cuda")
+    mesh_gen.manual_seed(SEED + 1)
+    worst = check_general_k2_k3(torch, mesh_gen)
+    check_sharded_rowlse(torch, mesh_gen, mesh)
+    time_general_k2_k3(torch, mesh_gen, mesh, worst)
 
 
 def check_k2_k3(torch, gen) -> tuple:
@@ -1485,9 +1559,12 @@ def main() -> int:
     ne_only = "--ne" in sys.argv[1:]
     spectral_only = "--spectral" in sys.argv[1:]
     mesh_only = "--mesh" in sys.argv[1:]
+    rowlse_only = "--rowlse" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
+    elif rowlse_only:
+        libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
     elif mesh_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only:
@@ -1507,7 +1584,7 @@ def main() -> int:
         return 0
     from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
 
-    X, labels = make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
+    X, labels = (None, None) if rowlse_only else make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
     if ne_only:
         run_ne_path(torch, counters, X, labels)
         print(smi, flush=True)
@@ -1524,6 +1601,10 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    if rowlse_only:
+        run_rowlse_kernels(torch, gen)
+        print(smi, flush=True)
+        return 0
     k1 = check_k1(torch, gen, *find_ab_params(1.0, 0.1))  # UMAP's defaults
     if k1_only:
         print(smi, flush=True)

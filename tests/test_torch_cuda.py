@@ -20,7 +20,10 @@ from torchdr_tpu_torch.ops.cuda.gather_kernel import (
     bucket_take,
     bucket_take_plain,
 )
+from torchdr_tpu_torch.ops.cuda import reduce_kernel
+from torchdr_tpu_torch.ops.cuda.build import sm_count
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
+    k2_general_grid,
     rows_per_block,
     rowlse_bwd,
     rowlse_bwd_general,
@@ -349,6 +352,111 @@ def test_sharded_rowlse_on_the_card_matches_the_square_kernels(cuda, kernel, n, 
     assert float((g_sh - g_sq).abs().max()) <= 1e-4 * float(g_sq.abs().max())
     again, g_again = run(lambda z: pairwise_logkernel_rowlse_sharded(z, mesh, kernel))
     assert torch.equal(again, sh) and torch.equal(g_again, g_sh)
+
+
+def _padded_shards(Z, world):
+    n, d = Z.shape
+    chunk = -(-n // world)
+    Zp = torch.zeros((chunk * world, d), device=Z.device)
+    Zp[:n] = Z
+    return [(r * chunk, Zp[r * chunk : (r + 1) * chunk]) for r in range(world)]
+
+
+def _spread_grid(side, spacing, device, seed):
+    """Points on a grid ``spacing`` apart: every exp(-d²) underflows."""
+    g = torch.arange(side, dtype=torch.float32) * spacing
+    Z = torch.stack(torch.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    Z = Z + 0.01 * torch.rand(Z.shape, generator=torch.Generator().manual_seed(seed))
+    return Z.contiguous().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+def test_one_pass_general_k3_and_k2_match_plain_on_a_padded_last_shard(cuda, kernel, d):
+    """The one-pass general K3 (each pair once, its term added to its row
+    and its column) and the general K2 on every shard of n = 2,049 rows cut
+    4 ways: the last shard padded, the 32-column blocks of the last chunk
+    ragged, shards whose rows meet their own columns."""
+    rng = np.random.default_rng(40 + d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(2049, d))).astype(np.float32)).to(cuda)
+    for off, Zq in _padded_shards(Z, 4):
+        _hold_general_to_plain(Zq, Z, off, Z.shape[0], kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_one_pass_general_k3_and_k2_on_the_underflowing_grid(cuda, kernel):
+    """A 40 x 40 grid 15 apart: exp(-d²) underflows for every pair, the
+    gaussian weights exp(-d² - lse) do not."""
+    Z = _spread_grid(40, 15.0, cuda, 3)
+    for off, Zq in _padded_shards(Z, 3):
+        _hold_general_to_plain(Zq, Z, off, Z.shape[0], kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("exclude_diag", [True, False])
+def test_general_k2_sharing_the_own_block_matches_plain(cuda, d, exclude_diag, monkeypatch):
+    """The general K2 with the shard's own block shared (each unordered pair
+    once, its value added to its row and its column), which the rule takes
+    at this small size once its shortest chunk is one block of 32 columns:
+    every shard of n = 3,001 cut 4 ways (own blocks of 32 columns above,
+    below and across the row tiles, a ragged last one, a padded last shard)
+    against the plain version at K2's tolerance, and the same bits twice."""
+    monkeypatch.setattr(reduce_kernel, "_SHARED_MIN_CHUNK", reduce_kernel._LANES)
+    rng = np.random.default_rng(60 + d)
+    n = 3001
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    for off, Zq in _padded_shards(Z, 4):
+        live = min(Zq.shape[0], n - off)
+        assert k2_general_grid(live, n, off, sm_count(cuda.index or 0), d, "student", True)[0]
+        got = rowlse_fwd_general(Zq, Z, off, n, "student", exclude_diag, shard_of_db=True)
+        want = rowlse_fwd_general_plain(Zq, Z, off, n, "student", exclude_diag)
+        assert torch.isneginf(got[live:]).all()
+        assert float((got[:live] - want[:live]).abs().max()) <= 1e-5 * max(
+            1.0, float(want[:live].abs().max()))
+        again = rowlse_fwd_general(Zq, Z, off, n, "student", exclude_diag, shard_of_db=True)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_general_k3_repeats_bit_for_bit_in_two_kernels(cuda, kernel):
+    """Both outputs of the general K3 equal bit for bit over two calls (no
+    atomics: fixed-order column sums and merge), and a call launches two
+    kernels, its pair loop and its merge, as the wrapper counts them."""
+    rng = np.random.default_rng(7)
+    Z = torch.from_numpy((2.0 * rng.normal(size=(5003, 2))).astype(np.float32)).to(cuda)
+    (off, Zq), = _padded_shards(Z, 4)[1:2]
+    lse = rowlse_fwd_general_plain(Zq, Z, off, Z.shape[0], kernel)
+    g = torch.rand(Zq.shape[0], generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    kernels = rowlse_bwd_general.kernel_launches
+    first = rowlse_bwd_general(Zq, Z, off, Z.shape[0], lse, g, kernel)
+    assert rowlse_bwd_general.kernel_launches - kernels == 2
+    second = rowlse_bwd_general(Zq, Z, off, Z.shape[0], lse, g, kernel)
+    assert rowlse_bwd_general.kernel_launches - kernels == 4
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_square_k2_k3_unchanged_beside_the_general_form(cuda, kernel, d):
+    """The square kernels keep their own launch: one K2 and one K3 launch a
+    call, the general counters untouched, the outputs within the square
+    tolerances of the plain versions and the same bits twice."""
+    rng = np.random.default_rng(d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(3001, d))).astype(np.float32)).to(cuda)
+    general = (rowlse_fwd_general.launches, rowlse_bwd_general.launches,
+               rowlse_bwd_general.kernel_launches)
+    _hold_k2_k3_to_plain(Z, kernel)
+    lse = rowlse_fwd_plain(Z, kernel)
+    g = torch.full_like(lse, 1.0 / Z.shape[0])
+    assert torch.equal(rowlse_fwd(Z, kernel), rowlse_fwd(Z, kernel))
+    assert torch.equal(rowlse_bwd(Z, lse, g, kernel), rowlse_bwd(Z, lse, g, kernel))
+    assert (rowlse_fwd_general.launches, rowlse_bwd_general.launches,
+            rowlse_bwd_general.kernel_launches) == general
 
 
 @pytest.mark.cuda

@@ -35,9 +35,13 @@ from torchdr_tpu.ops.reduce import pairwise_logkernel_logsumexp as jax_logsumexp
 from torchdr_tpu.ops.reduce import pairwise_logkernel_rowlse as jax_rowlse
 from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     _BLOCKS_PER_SM as BLOCKS_PER_SM,
+    _LANES as LANES,
+    _STAGED_BYTES as STAGED_BYTES,
     _THREADS as THREADS,
     column_bytes,
     column_chunks,
+    general_bwd_grid,
+    k2_general_grid,
     rows_per_block,
     rowlse_bwd,
     rowlse_bwd_plain,
@@ -230,6 +234,125 @@ def test_general_grid_covers_every_column_once_in_whole_waves(n_rows, n):
                 wave = 132 * BLOCKS_PER_SM
                 assert 0.9 * wave * -(-blocks // wave) <= blocks
     assert column_chunks(10_000, 132, 2, False, n_rows=10_000) == column_chunks(10_000, 132)
+
+
+def _general_k3_walk(lane: int):
+    """The general K3's walk of one block of 32 staged columns, as
+    ``column_block`` in ``rowlse_bwd.cu`` indexes it: (the record lane
+    ``lane`` loads at step t, the column whose running sum it holds then)
+    for t = 0..31, and the column whose sum it holds after the last step.
+    A block is staged twice, record e holding column e mod 32; the sum
+    moves one lane down after each step."""
+    steps = [(lane + t, (lane + t) % LANES) for t in range(LANES)]
+    return steps, (lane + LANES) % LANES
+
+
+def test_general_k3_walk_takes_each_pair_once_and_ends_on_its_own_column():
+    """Every lane takes each of the block's 32 columns once, from its
+    doubled record; at each step the 32 lanes take 32 distinct columns; the
+    running sum a lane holds at step t came from lane + 1 at step t - 1,
+    which held the same column; after 32 steps lane l holds column l."""
+    walks = [_general_k3_walk(lane) for lane in range(LANES)]
+    for lane, (steps, last) in enumerate(walks):
+        assert sorted(col for _, col in steps) == list(range(LANES))
+        assert all(rec % LANES == col and rec < 2 * LANES for rec, col in steps)
+        assert last == lane
+    for t in range(LANES):
+        assert sorted(walks[lane][0][t][1] for lane in range(LANES)) == list(range(LANES))
+        if t:
+            for lane in range(LANES):
+                assert walks[lane][0][t][1] == walks[(lane + 1) % LANES][0][t - 1][1]
+
+
+@pytest.mark.parametrize("n_rows, n", [(2_500, 10_000), (2_501, 10_001), (12_500, 50_000),
+                                       (10_000, 2_500), (5, 40), (1, 1)])
+def test_general_k3_grid_and_scratch_cover_every_partial_once(n_rows, n):
+    """The one-pass general K3's grid (:func:`general_bwd_grid`): chunks of
+    whole 32-column blocks tile the columns, each (chunk, row) slot of the
+    dZq partial and each (row tile, column) slot of the dZdb partial is
+    written by one block, the scratch holds exactly those slots, a block's
+    staging (each column twice, and each warp's column sums) fits kMaxStaged
+    with six blocks resident per SM, and at the mesh's shard sizes (rows of
+    the shard against the whole database) the grid fills whole waves to
+    nine tenths and never runs a little over one."""
+    for d in (1, 2, 3, 8):
+        tiles, n_chunks, chunk, scratch = general_bwd_grid(n_rows, n, 132, d)
+        assert chunk % LANES == 0 and chunk >= LANES
+        assert (tiles - 1) * rows_per_block(d) < n_rows <= tiles * rows_per_block(d)
+        q_slots = np.zeros((n_chunks, n_rows), dtype=np.int64)
+        db_slots = np.zeros((tiles, n), dtype=np.int64)
+        for t in range(tiles):
+            rows = slice(t * rows_per_block(d), min(n_rows, (t + 1) * rows_per_block(d)))
+            for k in range(n_chunks):
+                lo, hi = k * chunk, min(n, (k + 1) * chunk)
+                assert lo < hi
+                q_slots[k, rows] += 1
+                db_slots[t, lo:hi] += 1
+        assert np.all(q_slots == 1) and np.all(db_slots == 1)
+        assert scratch == (q_slots.size + db_slots.size) * d
+        assert staged_bytes(chunk, d, True, columns_summed=True) <= STAGED_BYTES
+        assert column_bytes(d, True, columns_summed=True) == 4 * (
+            2 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8) + THREADS // LANES * d)
+        assert BLOCKS_PER_SM * (staged_bytes(chunk, d, True, columns_summed=True) + 1024) <= 227 * 1024
+        if 2_500 <= n_rows <= n:
+            blocks = tiles * n_chunks
+            wave = 132 * BLOCKS_PER_SM
+            assert 0.9 * wave * -(-blocks // wave) <= blocks
+    # the shard of a 4-way mesh at n = 50,000, d = 2: 92 chunks of 544
+    # columns, 25 row tiles, (92 x 12,500 + 25 x 50,000) x 2 doubles of
+    # scratch (18.4 MB and 20.0 MB)
+    assert general_bwd_grid(12_500, 50_000, 132, 2) == (25, 92, 544, 4_800_000)
+
+
+@pytest.mark.parametrize("m, n, off, shared", [
+    (2_500, 10_000, 7_500, False),  # one wave of 64-column chunks: the rule refuses
+    (2_501, 10_001, 7_503, False),
+    (12_500, 50_000, 0, True),      # three waves of 544-column chunks
+    (12_500, 50_000, 37_500, True),
+    (12_500, 50_000, 40_000, False),  # the shard's rows run past the columns
+])
+def test_k2_general_grid_shares_the_own_block_where_whole_waves_remain(m, n, off, shared):
+    """The general K2's rule (:func:`k2_general_grid`): the shard's own
+    block is shared only for the student kernel, only when the caller
+    states that the shard's rows are the database's, and only where a grid
+    of three whole waves has chunks of at least a float32 run (256
+    columns); its chunks are whole blocks of 32 columns within the staging
+    budget, cover every column once and span three waves; otherwise the
+    plain grid is the one :func:`column_chunks` gives."""
+    wave = 132 * BLOCKS_PER_SM
+    for d in (1, 2, 3, 8):
+        plain = column_chunks(n, 132, d, backward=False, n_rows=m)
+        tiles = -(-m // rows_per_block(d))
+        for kernel, of_db in (("gaussian", True), ("student", False)):
+            assert k2_general_grid(m, n, off, 132, d, kernel, of_db) == (False, *plain, tiles)
+        got, n_chunks, chunk, got_tiles = k2_general_grid(m, n, off, 132, d, "student", True)
+        assert got == shared and got_tiles == tiles
+        if not shared:
+            assert (n_chunks, chunk) == plain
+            continue
+        assert chunk % LANES == 0 and chunk >= 256
+        assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
+        assert staged_bytes(chunk, d, False, columns_summed=True) <= STAGED_BYTES
+        assert column_bytes(d, False, columns_summed=True) == 4 * (
+            3 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8) + THREADS // LANES)
+        assert tiles * n_chunks > 2 * wave
+    assert k2_general_grid(12_500, 50_000, 0, 132, 2, "student", True) == (True, 92, 544, 25)
+
+
+def test_general_k3_constants_are_the_sources():
+    """The wrapper's grid constants are the general K3's (``rowlse_bwd.cu``)."""
+    import re
+    from pathlib import Path
+
+    from torchdr_tpu_torch.ops.cuda import reduce_kernel
+
+    src = (Path(reduce_kernel.__file__).parents[1] / "csrc" / "rowlse_bwd.cu").read_text()
+    const = dict(re.findall(r"constexpr (?:int|size_t) (k\w+) = ([^;]+);", src))
+    assert int(const["kThreads"]) == THREADS and int(const["kBlocksPerSM"]) == BLOCKS_PER_SM
+    assert int(const["kLanes"]) == LANES and const["kWarps"] == "kThreads / kLanes"
+    assert const["kMaxStaged"] == "227 * 1024 / kBlocksPerSM - 1024"
+    assert STAGED_BYTES == 227 * 1024 // BLOCKS_PER_SM - 1024
+    assert "static constexpr int kColFloats = 2 * kRec + kWarps * D;" in src
 
 
 def test_wrappers_check_their_inputs():

@@ -20,8 +20,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .affinity import (  # noqa: E402
+    Affinity,
     DoublyStochasticQuadraticAffinity,
     EntropicAffinity,
+    LogAffinity,
     MAGICAffinity,
     NormalizedGaussianAffinity,
     NormalizedStudentAffinity,
@@ -29,9 +31,13 @@ from .affinity import (  # noqa: E402
     PHATEAffinity,
     SelfTuningAffinity,
     SinkhornAffinity,
+    SparseAffinity,
+    SparseLogAffinity,
     SymmetricEntropicAffinity,
     UMAPAffinity,
 )
+from .affinity_matcher import AffinityMatcher  # noqa: E402
+from .base import DRModule  # noqa: E402
 from .eval import (  # noqa: E402
     adjusted_rand_index,
     kmeans_ari,
@@ -43,6 +49,10 @@ from .eval import (  # noqa: E402
     silhouette_score,
 )
 from .models.neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn  # noqa: E402
+from .models.neighbor.base import (  # noqa: E402
+    NegativeSamplingNeighborEmbedding,
+    NeighborEmbedding,
+)
 from .models.spectral import (  # noqa: E402
     PCA,
     PHATE,
@@ -50,12 +60,27 @@ from .models.spectral import (  # noqa: E402
     IncrementalPCA,
     KernelPCA,
 )
-from .ops.distance import knn_graph, knn_graph_host_chunked, pairwise_distances  # noqa: E402
+from .ops.distance import (  # noqa: E402
+    knn_graph,
+    knn_graph_host_chunked,
+    pairwise_distances,
+    pairwise_distances_indexed,
+)
 from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
 from .ops.kmeans import kmeans_fit  # noqa: E402
 from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
+from .ops.root_search import binary_search  # noqa: E402
 
 __all__ = [
+    "Affinity",
+    "LogAffinity",
+    "SparseAffinity",
+    "SparseLogAffinity",
+    "AffinityMatcher",
+    "DRModule",
+    "NeighborEmbedding",
+    "NegativeSamplingNeighborEmbedding",
+    "binary_search",
     "SNE",
     "TSNE",
     "UMAP",
@@ -90,6 +115,7 @@ __all__ = [
     "knn_graph",
     "knn_graph_host_chunked",
     "pairwise_distances",
+    "pairwise_distances_indexed",
     "ivf_build",
     "ivf_knn",
     "ivf_knn_queries",

@@ -82,6 +82,16 @@ class Affinity(BaseEstimator, ABC):
     def _device(self) -> torch.device:
         return resolve_device(self.device, self._active_mesh())
 
+    def _timings(self) -> Dict[str, float]:
+        """``timings_``, made anew after :meth:`clear_memory`."""
+        return self.__dict__.setdefault("timings_", {})
+
+    def clear_memory(self):
+        """Delete the public fitted attributes (the names ending in ``_``)."""
+        for name in list(vars(self)):
+            if name.endswith("_") and not name.startswith("_"):
+                delattr(self, name)
+
     def __call__(self, X, **kwargs):
         X, _ = to_torch(X, device=self._device())
         return self._compute_affinity(X, **kwargs)
@@ -105,7 +115,7 @@ class Affinity(BaseEstimator, ABC):
             return (C, None) if return_indices else C
         mesh = self._active_mesh()
         if mesh is not None and self.knn_mode != "ivf":
-            with log_phase(self.logger, "knn", self.timings_, X.device):
+            with log_phase(self.logger, "knn", self._timings(), X.device):
                 C, indices = knn_graph_sharded(
                     X, k=k, mesh=mesh, metric=self.metric, exclude_diag=self.zero_diag,
                     block_size=self.knn_block_size, mode=self.knn_mode,
@@ -123,7 +133,7 @@ class Affinity(BaseEstimator, ABC):
             )
             if cfg.ivf_block is not None:
                 ivf_kwargs["block"] = int(cfg.ivf_block)
-            with log_phase(self.logger, "knn", self.timings_, X.device):
+            with log_phase(self.logger, "knn", self._timings(), X.device):
                 if mesh is not None:
                     C, indices = ivf_knn_sharded(X, mesh=mesh, **ivf_kwargs)
                 else:
@@ -131,7 +141,7 @@ class Affinity(BaseEstimator, ABC):
                 if self.metric == "euclidean":
                     C = torch.sqrt(torch.clamp(C, min=0.0))
             return (C, indices) if return_indices else C
-        with log_phase(self.logger, "knn", self.timings_, X.device):
+        with log_phase(self.logger, "knn", self._timings(), X.device):
             C, indices = knn_graph(
                 X,
                 k=k,

@@ -26,8 +26,12 @@ and symmetrization then run row-sharded over it. The loop's state (Z, the
 optimizer's buffers, the affinity) lives on the mesh's first device, where
 the JAX package row-shards it by GSPMD placement hints; the explicitly
 sharded operations (t-SNE's and SNE's O(n²) repulsion) spread their work
-over the mesh. The generic ``affinity_out`` loss, parametric encoders and
-bounded dispatches wait for later slices.
+over the mesh. The generic ``affinity_out`` loss (``affinity_out``,
+``kwargs_affinity_out``, ``loss_fn``, ``kwargs_loss``), ``affinity_in=
+"precomputed"``, parametric encoders (``encoder``) and bounded dispatches
+(``max_iters_per_dispatch``) wait for ROADMAP item 21: the constructor takes
+them with the JAX package's defaults and raises ``NotImplementedError`` for
+any other value.
 """
 
 from __future__ import annotations
@@ -44,6 +48,15 @@ from .utils.logger import log_phase
 from .utils.optim import make_optimizer, normalize_optimizer_kwargs
 from .utils.schedulers import make_scheduler
 
+#: the JAX package's loss functions of the generic ``affinity_out`` path
+LOSS_FNS = ("square_loss", "cross_entropy_loss")
+
+
+def _not_ported(option: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"[TorchDR-Torch] ERROR : {option} is not ported yet (ROADMAP item 21)."
+    )
+
 
 class AffinityMatcher(DRModule):
     r"""Minimize a loss between input affinity P and embedding affinity Q.
@@ -58,7 +71,11 @@ class AffinityMatcher(DRModule):
     def __init__(
         self,
         affinity_in: Union[Affinity, str],
+        affinity_out: Optional[Affinity] = None,
+        kwargs_affinity_out: Optional[Dict] = None,
         n_components: int = 2,
+        loss_fn: str = "square_loss",
+        kwargs_loss: Optional[Dict] = None,
         optimizer: str = "Adam",
         optimizer_kwargs: Union[Dict, str, None] = None,
         lr: Union[float, str] = 1e0,
@@ -74,6 +91,8 @@ class AffinityMatcher(DRModule):
         check_interval: int = 50,
         distributed: Union[bool, str] = False,
         mesh=None,
+        encoder=None,
+        max_iters_per_dispatch: Optional[int] = None,
         **kwargs,
     ):
         super().__init__(
@@ -83,9 +102,31 @@ class AffinityMatcher(DRModule):
             random_state=random_state,
             **kwargs,
         )
+        if loss_fn not in LOSS_FNS:
+            raise ValueError(f"[TorchDR-Torch] ERROR : Loss function {loss_fn} not supported.")
+        if affinity_in == "precomputed":
+            raise _not_ported('affinity_in="precomputed"')
         if not isinstance(affinity_in, Affinity):
-            raise ValueError("[TorchDR-Torch] affinity_in must be an Affinity instance.")
+            raise ValueError(
+                '[TorchDR-Torch] affinity_in must be an Affinity instance or "precomputed".'
+            )
+        for option, value, default in (
+            ("affinity_out", affinity_out, None),
+            ("kwargs_affinity_out", kwargs_affinity_out, None),
+            ("loss_fn", loss_fn, "square_loss"),
+            ("kwargs_loss", kwargs_loss, None),
+            ("encoder", encoder, None),
+            ("max_iters_per_dispatch", max_iters_per_dispatch, None),
+        ):
+            if value != default:
+                raise _not_ported(f"{option}={value!r}")
         self.affinity_in = affinity_in
+        self.affinity_out = affinity_out
+        self.kwargs_affinity_out = kwargs_affinity_out
+        self.loss_fn = loss_fn
+        self.kwargs_loss = kwargs_loss
+        self.encoder = encoder
+        self.max_iters_per_dispatch = max_iters_per_dispatch
         self.optimizer = optimizer
         self.optimizer_kwargs = optimizer_kwargs
         self.lr = lr
@@ -139,7 +180,7 @@ class AffinityMatcher(DRModule):
             self.on_affinity_computation_start()
             self._compute_input_affinity(X)
             self.on_affinity_computation_end()
-        self.timings_.update(self.affinity_in.timings_)
+        self.timings_.update(self.affinity_in._timings())
 
         with log_phase(self.logger, "init", self.timings_, X.device):
             Z0 = self._init_embedding(X)

@@ -19,6 +19,7 @@ import torch
 from ...base import DRModule
 from ...ops.reductions import svd_flip
 from ...parallel.mesh import ShardedRows
+from ...utils.wrappers import restore_format, to_torch
 
 
 def _pca_svd(X: torch.Tensor, n_components: int):
@@ -126,3 +127,14 @@ class PCA(DRModule):
         else:
             raise ValueError(f"[TorchDR-Torch] ERROR : unknown PCA method {method!r}.")
         return embedding
+
+    def transform(self, X=None):
+        """The training embedding, or new rows projected on the fitted
+        components: (X − mean_) @ components_.T, on the fit's device in
+        float32; a tensor comes back as a tensor."""
+        if X is None:
+            return super().transform(None)
+        if self.mean_ is None:
+            raise ValueError("PCA is not fitted yet.")
+        Xt, fmt = to_torch(X, device=self.mean_.device, dtype=self.mean_.dtype)
+        return restore_format((Xt - self.mean_) @ self.components_.T, fmt)

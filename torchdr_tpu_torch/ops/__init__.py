@@ -1,12 +1,38 @@
 """Distance, kNN, root-search, sparse and kernel primitives."""
 
-from .distance import knn_graph, knn_graph_host_chunked
+from .distance import (
+    knn_graph,
+    knn_graph_host_chunked,
+    pairwise_distances,
+    pairwise_distances_indexed,
+)
 from .ivf import IVFIndex, auto_nlist, ivf_build, ivf_knn, ivf_knn_queries
 from .kmeans import kmeans_fit
 from .knn_config import EXACT, FAST, IVF, KnnConfig
+from .metrics import LIST_METRICS, pairwise_block
+from .reduce import pairwise_logkernel_logsumexp, pairwise_logkernel_rowlse
+from .reductions import (
+    center_kernel,
+    cross_entropy_loss,
+    entropy,
+    kmax,
+    kmin,
+    logsumexp_red,
+    matrix_power,
+    sum_red,
+    svd_flip,
+)
+from .root_search import binary_search, init_bounds
+from .sparse import sparse_to_dense, symmetrize_sparse
 
 __all__ = [
-    "KnnConfig", "EXACT", "FAST", "IVF",
-    "knn_graph", "knn_graph_host_chunked", "kmeans_fit",
+    "knn_graph", "knn_graph_host_chunked", "pairwise_distances", "pairwise_distances_indexed",
+    "KnnConfig", "EXACT", "FAST", "IVF", "kmeans_fit",
     "IVFIndex", "auto_nlist", "ivf_build", "ivf_knn", "ivf_knn_queries",
+    "LIST_METRICS", "pairwise_block",
+    "pairwise_logkernel_logsumexp", "pairwise_logkernel_rowlse",
+    "center_kernel", "cross_entropy_loss", "entropy", "kmax", "kmin",
+    "logsumexp_red", "matrix_power", "sum_red", "svd_flip",
+    "binary_search", "init_bounds",
+    "sparse_to_dense", "symmetrize_sparse",
 ]

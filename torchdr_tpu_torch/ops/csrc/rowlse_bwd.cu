@@ -2,8 +2,9 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel torchdr_tpu/ops/pallas/reduce_kernel.py
-// (rowlse_bwd_pallas_general / _bwd_kernel), in its square form through
-// the wrapper rowlse_bwd_pallas. Given Z (n, d), the forward's out = lse (n,) and its
+// (rowlse_bwd_pallas_general / _bwd_kernel), through its square wrapper
+// rowlse_bwd_pallas and in its general form (below). Given Z (n, d), the
+// forward's out = lse (n,) and its
 // cotangent g (n,), the TPU kernel recomputes each tile's weights
 //
 //   c_ij = g_i * exp(log k_ij - lse_i) * dlog k / dd^2
@@ -69,23 +70,50 @@
 // the kernel value and not in the gram, and an input of 160 KB.
 //
 // The general form (entry point rowlse_bwd_general) takes a query shard
-// Zq (m rows, global ids row_off + i) against the first n_cols rows of Zdb,
-// and returns the TPU kernel's two outputs, dZq (m, d) and dZdb (n_cols,
-// d). The two do not combine there, so it makes two launches of the same
-// row-wise, atomic-free pair loop with one-sided weights (kSides):
+// Zq (m rows, global ids row_off + i) with its lse and g against the first
+// n_cols rows of Zdb, and returns the TPU kernel's two outputs, dZq (m, d)
+// and dZdb (n_cols, d), with the one-sided coefficient c_ij (the row's
+// weight only). It evaluates each of the m n_cols pairs once, in one pass:
+// the pair's term c_ij (zq_i - zdb_j) is added to row i's register sums
+// (dZq) and to column j's sum (dZdb, with the sign taken back at the end).
 //
-//   pass A, rows Zq, columns Zdb, the row's weight only (u_i, or g_i and
-//     lse_i): dZq_i = 2 sum_j c_ij (zq_i - zdb_j);
-//   pass B, rows Zdb, columns Zq staged with their weights (the shard's
-//     global ids as column ids): dZdb_j = 2 sum_i c_ij (zdb_j - zq_i).
+// Bound. The pairs' arithmetic, as above: 6d + 3 float32 operations a pair
+// (gaussian one fewer; a pair with both ends in the shard counted once):
+// 0.124 ms at 12,500 x 50,000 (one shard of a 4-way mesh, 6.25e8 pairs) at
+// 67 TFLOP/s; the bytes are 1.2 MB. This design makes one special-function
+// call a pair (the reciprocal, or the exp2 of the row's weight), 0.15 ms at
+// 16 a clock per SM, and 11.75 instructions a pair at d = 2 (cuobjdump),
+// 0.22 ms at four warp instructions a clock per SM: issue is its floor.
 //
-// Together they evaluate the 2 m n_cols ordered pairs that the TPU kernel
-// does, and need none of its (query tiles, n_db, d) partial buffer. The
-// square form is the same loop with both weights (c_mj + c_jm), row and
-// column ids offset by 0. A term whose row and column global ids are equal
-// is zeroed in all forms. Each pass has its own chunk partials and merge,
-// summed in a fixed order, so a result repeats bit for bit. The wrapper
-// passes only the rows and columns whose global ids lie below n_total.
+// What the design does about the column sums, with no atomics:
+// - A warp walks each block of 32 staged columns in 32 steps; at step t lane
+//   l takes column (l + t) mod 32 against its kRows rows, and holds that
+//   column's running sum, which then moves one lane down (one __shfl_sync a
+//   coordinate per kRows pairs). After the 32 steps lane l holds column l's
+//   sum over the warp's 32 kRows rows, a float32 run of at most 128 terms,
+//   and stores it in the warp's own shared-memory slot for that column. The
+//   column side so costs d fused multiply-adds a pair and d / kRows
+//   shuffles: 2.5 instructions a pair at d = 2. (Two running sums a
+//   column, each fed by half the rows, shortened the chain and ran 3 %
+//   slower.)
+// - Each block of 32 columns is staged twice in a row, so that lane l's
+//   record at step t lies at a constant offset t from its own base: one
+//   LDS a step, with no index arithmetic.
+// - At the end of the chunk the block's warps' column sums are added in
+//   double in warp order, and each (row tile, column) pair of the grid
+//   writes its partial; rows keep the float32 runs of at most kTile
+//   columns into doubles and write one partial a column chunk.
+// - One merge kernel sums both: dZq over the chunks (a warp a row), dZdb
+//   over the row tiles, each in a fixed order, so a call repeats bit for
+//   bit. The
+//   scratch is (n_chunks, m, d) + (row tiles, n_cols, d) doubles: 18.4 MB
+//   + 20.0 MB at 12,500 x 50,000, d = 2 (92 chunks of 544, 25 row tiles).
+// - The grid is the square form's: (row tiles) x (column chunks, here
+//   multiples of 32 columns) in whole waves, sized by the wrapper. A block
+//   of 32 columns that is ragged (past n_cols) or meets the block's global
+//   rows takes the masked step, which zeroes those terms.
+// - The square form keeps its own kernel above: sharing its loop with the
+//   general form slowed it by 4.5 to 8.6 % (PERF.md section 6).
 //
 // Accumulation as in rowlse_fwd.cu: each staged tile of at most kTile = 256
 // columns is summed in float32 and added to double accumulators. The terms
@@ -130,16 +158,10 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // Student: u_i = -g_i e^(-lse_i).
 __device__ __forceinline__ float student_weight(float g, float lse) { return -g * expf(-lse); }
 
-// Which weights a pair's coefficient takes: the row's and the column's
-// (the square form), the row's only (pass A) or the column's only (pass B).
-constexpr int kRowSide = 1;
-constexpr int kColSide = 2;
-constexpr int kBothSides = kRowSide | kColSide;
-
 // G staged columns, starting at cols (global column j), against the
 // thread's R rows; wi is u_i (student) or g_i (gaussian), li is lse_i. The
 // gaussian sums carry the opposite sign, which the caller takes back.
-template <int D, int G, bool kGaussian, bool kDiag, int kSides>
+template <int D, int G, bool kGaussian, bool kDiag>
 __device__ __forceinline__ void pair_group(const float* cols, int j,
                                            const float (&zi)[Shape<D>::kRows][D],
                                            const float (&wi)[Shape<D>::kRows],
@@ -174,9 +196,7 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
           s = fmaf(diff[c], diff[c], s);
         }
         const float q = rcp_approx(s);
-        const float w = kSides == kBothSides ? wi[r] + rec[u][D]
-                        : kSides == kRowSide ? wi[r] : rec[u][D];
-        coef = w * (q * q);
+        coef = (wi[r] + rec[u][D]) * (q * q);
       } else {
         diff[0] = zi[r][0] - rec[u][0];
         float s = diff[0] * diff[0];  // d^2
@@ -185,15 +205,9 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
           diff[c] = zi[r][c] - rec[u][c];
           s = fmaf(diff[c], diff[c], s);
         }
-        if (kSides == kBothSides) {
-          const float ei = ex2_approx((s + li[r]) * -kLog2e);
-          const float ej = ex2_approx((s + rec[u][D + 1]) * -kLog2e);
-          coef = fmaf(wi[r], ei, rec[u][D] * ej);
-        } else if (kSides == kRowSide) {
-          coef = wi[r] * ex2_approx((s + li[r]) * -kLog2e);
-        } else {
-          coef = rec[u][D] * ex2_approx((s + rec[u][D + 1]) * -kLog2e);
-        }
+        const float ei = ex2_approx((s + li[r]) * -kLog2e);
+        const float ej = ex2_approx((s + rec[u][D + 1]) * -kLog2e);
+        coef = fmaf(wi[r], ei, rec[u][D] * ej);
       }
       if (kDiag) coef = (j + u == row[r]) ? 0.0f : coef;
 #pragma unroll
@@ -204,7 +218,7 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
 
 // One staged tile of len <= kTile columns: a float32 run per row and
 // coordinate, added to the double sums at its end.
-template <int D, bool kGaussian, bool kDiag, int kSides>
+template <int D, bool kGaussian, bool kDiag>
 __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
                                           const float (&zi)[Shape<D>::kRows][D],
                                           const float (&wi)[Shape<D>::kRows],
@@ -221,9 +235,9 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
   int t = 0;
   for (; t + kUnroll <= len; t += kUnroll)
-    pair_group<D, kUnroll, kGaussian, kDiag, kSides>(cols + t * P, j0 + t, zi, wi, li, row, a);
+    pair_group<D, kUnroll, kGaussian, kDiag>(cols + t * P, j0 + t, zi, wi, li, row, a);
   for (; t < len; ++t)
-    pair_group<D, 1, kGaussian, kDiag, kSides>(cols + t * P, j0 + t, zi, wi, li, row, a);
+    pair_group<D, 1, kGaussian, kDiag>(cols + t * P, j0 + t, zi, wi, li, row, a);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
@@ -232,16 +246,11 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
 }
 
-// Rows: m rows of Zr (global ids row_off + i) with their g and lse; columns:
-// n_cols rows of Zc (global ids col_off + j) with theirs. The weights a
-// side does not take are not read (their pointers may be null).
-template <int D, bool kGaussian, int kSides>
+template <int D, bool kGaussian>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-rowlse_bwd_partial_kernel(const float* __restrict__ Zr, const float* __restrict__ lse_r,
-                          const float* __restrict__ g_r, const float* __restrict__ Zc,
-                          const float* __restrict__ lse_c, const float* __restrict__ g_c,
-                          double* __restrict__ part, int m, int n_cols, int row_off,
-                          int col_off, int chunk) {
+rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__ lse,
+                          const float* __restrict__ g, double* __restrict__ part, int n,
+                          int chunk) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   extern __shared__ float4 staged[];
@@ -249,59 +258,46 @@ rowlse_bwd_partial_kernel(const float* __restrict__ Zr, const float* __restrict_
 
   const int r0 = blockIdx.x * (R * kThreads);
   const int c0 = blockIdx.y * chunk;
-  const int c1 = min(n_cols, c0 + chunk);
+  const int c1 = min(n, c0 + chunk);
   for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
     const int j = c0 + t;
 #pragma unroll
-    for (int c = 0; c < D; ++c) cols[t * P + c] = Zc[static_cast<size_t>(j) * D + c];
-    if (kSides & kColSide) {
-      cols[t * P + D] = kGaussian ? g_c[j] : student_weight(g_c[j], lse_c[j]);
-      cols[t * P + D + 1] = lse_c[j];
-    } else {
-      cols[t * P + D] = 0.0f;
-      cols[t * P + D + 1] = 0.0f;
-    }
+    for (int c = 0; c < D; ++c) cols[t * P + c] = Z[static_cast<size_t>(j) * D + c];
+    cols[t * P + D] = kGaussian ? g[j] : student_weight(g[j], lse[j]);
+    cols[t * P + D + 1] = lse[j];
   }
 
-  // global row ids, which the diagonal test compares with column ids; the
-  // ragged last row tile: rows >= m are computed and not written
-  int row[R];
+  int row[R];  // the ragged last row tile: rows >= n are computed and not written
   float zi[R][D], wi[R], li[R];
   double acc[R][D];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = r0 + r * kThreads + threadIdx.x;
-    row[r] = row_off + i;
-    const bool live = i < m;
+    row[r] = r0 + r * kThreads + threadIdx.x;
+    const bool live = row[r] < n;
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      zi[r][c] = live ? Zr[static_cast<size_t>(i) * D + c] : 0.0f;
+      zi[r][c] = live ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
       acc[r][c] = 0.0;
     }
-    const bool weighted = live && (kSides & kRowSide);
-    li[r] = weighted ? lse_r[i] : 0.0f;
-    wi[r] = !weighted ? 0.0f : kGaussian ? g_r[i] : student_weight(g_r[i], li[r]);
+    li[r] = live ? lse[row[r]] : 0.0f;
+    wi[r] = !live ? 0.0f : kGaussian ? g[row[r]] : student_weight(g[row[r]], li[r]);
   }
   __syncthreads();
 
-  const int g0 = row_off + r0;  // the block's first global row id
   for (int j0 = c0; j0 < c1; j0 += kTile) {
     const int len = min(kTile, c1 - j0);
     const float* tile = cols + (j0 - c0) * P;
-    const int gj0 = col_off + j0;  // the tile's first global column id
-    // only a tile whose global columns meet the block's global rows can
-    // hold a term of equal ids
-    if (gj0 < g0 + R * kThreads && g0 < gj0 + len)
-      pair_tile<D, kGaussian, true, kSides>(tile, gj0, len, zi, wi, li, row, acc);
+    // only a tile whose columns meet the block's rows can hold a j == m term
+    if (j0 < r0 + R * kThreads && r0 < j0 + len)
+      pair_tile<D, kGaussian, true>(tile, j0, len, zi, wi, li, row, acc);
     else
-      pair_tile<D, kGaussian, false, kSides>(tile, gj0, len, zi, wi, li, row, acc);
+      pair_tile<D, kGaussian, false>(tile, j0, len, zi, wi, li, row, acc);
   }
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = row[r] - row_off;
-    if (i < m) {
-      const size_t at = (static_cast<size_t>(blockIdx.y) * m + i) * D;
+    if (row[r] < n) {
+      const size_t at = (static_cast<size_t>(blockIdx.y) * n + row[r]) * D;
 #pragma unroll
       for (int c = 0; c < D; ++c) part[at + c] = acc[r][c];
     }
@@ -318,50 +314,285 @@ __global__ void rowlse_bwd_merge_kernel(const double* __restrict__ part,
   out[e] = static_cast<float>(2.0 * s);
 }
 
-// One pass: the partial kernel over (row tiles x column chunks), then the
-// merge of its chunk partials into out (m, d).
-template <int D, int kSides>
-int pass(const float* Zr, const float* lse_r, const float* g_r, const float* Zc,
-         const float* lse_c, const float* g_c, float* out, double* part, int m, int n_cols,
-         int row_off, int col_off, int n_chunks, int chunk, bool gaussian,
-         cudaStream_t stream) {
-  if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n_cols)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int D>
+int launch(const float* Z, const float* lse, const float* g, float* out, double* part, int n,
+           int n_chunks, int chunk, bool gaussian, cudaStream_t stream) {
   const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
-  const dim3 grid((m + rows - 1) / rows, n_chunks);
+  const dim3 grid((n + rows - 1) / rows, n_chunks);
   if (gaussian) {
-    rowlse_bwd_partial_kernel<D, true, kSides><<<grid, kThreads, staged_bytes, stream>>>(
-        Zr, lse_r, g_r, Zc, lse_c, g_c, part, m, n_cols, row_off, col_off, chunk);
+    rowlse_bwd_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, lse, g, part, n, chunk);
   } else {
-    rowlse_bwd_partial_kernel<D, false, kSides><<<grid, kThreads, staged_bytes, stream>>>(
-        Zr, lse_r, g_r, Zc, lse_c, g_c, part, m, n_cols, row_off, col_off, chunk);
+    rowlse_bwd_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, lse, g, part, n, chunk);
   }
-  const int nd = m * D;
+  const int nd = n * D;
   rowlse_bwd_merge_kernel<<<(nd + 255) / 256, 256, 0, stream>>>(part, out, nd, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- The general form: one evaluation per pair (rowlse_bwd_general) ----
+
+constexpr int kLanes = 32;
+constexpr int kWarps = kThreads / kLanes;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMergeThreads = 256;
+
 template <int D>
-int square(const float* Z, const float* lse, const float* g, float* out, double* part, int n,
-           int n_chunks, int chunk, bool gaussian, cudaStream_t stream) {
-  return pass<D, kBothSides>(Z, lse, g, Z, lse, g, out, part, n, n, 0, 0, n_chunks, chunk,
-                             gaussian, stream);
+struct General {
+  static constexpr int kRows = Shape<D>::kRows;
+  // floats of one staged z_j, padded to an aligned vector (as rowlse_fwd.cu)
+  static constexpr int kRec = D == 1 ? 1 : D == 2 ? 2 : D <= 4 ? 4 : 8;
+  // shared floats a column takes: z_j twice and each warp's column sum
+  static constexpr int kColFloats = 2 * kRec + kWarps * D;
+};
+
+// One staged column into registers, by the widest aligned loads.
+template <int P>
+__device__ __forceinline__ void load_record(const float* rec, float (&v)[P]) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < P / 4; ++k) {
+      const float4 t = reinterpret_cast<const float4*>(rec)[k];
+      v[4 * k] = t.x;
+      v[4 * k + 1] = t.y;
+      v[4 * k + 2] = t.z;
+      v[4 * k + 3] = t.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(rec);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = rec[0];
+  }
+}
+
+// A block of 32 staged columns (global ids j0 + k; those of k >= live are
+// padding) against the thread's R rows, in 32 steps: at step t the lane
+// takes column k = (lane + t) mod 32, whose running sum it holds in ca,
+// and passes that sum one lane down. zb is the lane's first record in the
+// doubled block. After the last step the lane holds column lane's sum.
+// kMask zeroes the terms of padding columns and of equal global ids (there
+// the difference is zero but the coefficient need not be finite).
+template <int D, bool kGaussian, bool kMask>
+__device__ __forceinline__ void column_block(const float* zb, int j0, int live, int lane,
+                                             const float (&zi)[General<D>::kRows][D],
+                                             const float (&wi)[General<D>::kRows],
+                                             const float (&li)[General<D>::kRows],
+                                             const int (&row)[General<D>::kRows],
+                                             float (&a)[General<D>::kRows][D], float (&ca)[D]) {
+  constexpr int R = General<D>::kRows;
+  constexpr int P = General<D>::kRec;
+  const int from = (lane + 1) & (kLanes - 1);
+#pragma unroll
+  for (int c = 0; c < D; ++c) ca[c] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kLanes; ++t) {
+    float zj[P];
+    load_record<P>(zb + t * P, zj);
+    const int k = (lane + t) & (kLanes - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float diff[D];
+      float coef;
+      if (!kGaussian) {
+        float s = 1.0f;  // 1 + d^2
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          diff[c] = zi[r][c] - zj[c];
+          s = fmaf(diff[c], diff[c], s);
+        }
+        const float q = rcp_approx(s);
+        coef = wi[r] * (q * q);
+      } else {
+        diff[0] = zi[r][0] - zj[0];
+        float s = diff[0] * diff[0];  // d^2
+#pragma unroll
+        for (int c = 1; c < D; ++c) {
+          diff[c] = zi[r][c] - zj[c];
+          s = fmaf(diff[c], diff[c], s);
+        }
+        coef = wi[r] * ex2_approx((s + li[r]) * -kLog2e);
+      }
+      if (kMask) coef = (k >= live || j0 + k == row[r]) ? 0.0f : coef;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        a[r][c] = fmaf(coef, diff[c], a[r][c]);
+        ca[c] = fmaf(coef, diff[c], ca[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) ca[c] = __shfl_sync(kFullMask, ca[c], from);
+  }
+}
+
+// Rows: the m rows of Zq (global ids row_off + i) with their lse and g;
+// columns: chunk blockIdx.y of the n_cols rows of Zdb. Writes this chunk's
+// partial of dZq rows and this row tile's partial of dZdb columns.
+template <int D, bool kGaussian>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rowlse_bwd_general_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
+                          const float* __restrict__ lse, const float* __restrict__ g,
+                          double* __restrict__ part_q, double* __restrict__ part_db, int m,
+                          int n_cols, int row_off, int chunk) {
+  constexpr int R = General<D>::kRows;
+  constexpr int P = General<D>::kRec;
+  extern __shared__ float4 staged[];
+  const int c0 = blockIdx.y * chunk;
+  const int len = min(n_cols, c0 + chunk) - c0;
+  const int n_blk = (len + kLanes - 1) / kLanes;
+  float* zs = reinterpret_cast<float*>(staged);  // 2 * 32 records a block of columns
+  float* cs = zs + n_blk * 2 * kLanes * P;       // [warp][column][coordinate] sums
+  // record e of block b holds column 32 b + (e mod 32): the block twice
+  for (int e = threadIdx.x; e < n_blk * 2 * kLanes; e += kThreads) {
+    const int col = (e / (2 * kLanes)) * kLanes + (e & (kLanes - 1));
+#pragma unroll
+    for (int c = 0; c < P; ++c)
+      zs[e * P + c] = (c < D && col < len) ? Zdb[static_cast<size_t>(c0 + col) * D + c] : 0.0f;
+  }
+
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int r0 = blockIdx.x * (R * kThreads);
+  // global row ids, which the mask compares with column ids; the ragged
+  // last row tile: rows >= m have weight 0 and are not written
+  int row[R];
+  float zi[R][D], wi[R], li[R], a[R][D];
+  double acc[R][D];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = r0 + r * kThreads + threadIdx.x;
+    row[r] = row_off + i;
+    const bool live = i < m;
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      zi[r][c] = live ? Zq[static_cast<size_t>(i) * D + c] : 0.0f;
+      a[r][c] = 0.0f;
+      acc[r][c] = 0.0;
+    }
+    li[r] = live ? lse[i] : 0.0f;
+    wi[r] = !live ? 0.0f : kGaussian ? g[i] : student_weight(g[i], li[r]);
+  }
+  __syncthreads();
+
+  const int g0 = row_off + r0;  // the block's first global row id
+  float* own = cs + (threadIdx.x / kLanes) * (n_blk * kLanes * D);
+  for (int b = 0; b < n_blk; ++b) {
+    const int j0 = c0 + b * kLanes;
+    const int live = len - b * kLanes;
+    const float* zb = zs + (b * 2 * kLanes + lane) * P;
+    float ca[D];
+    if (live < kLanes || (j0 < g0 + R * kThreads && g0 < j0 + kLanes))
+      column_block<D, kGaussian, true>(zb, j0, live, lane, zi, wi, li, row, a, ca);
+    else
+      column_block<D, kGaussian, false>(zb, j0, live, lane, zi, wi, li, row, a, ca);
+#pragma unroll
+    for (int c = 0; c < D; ++c) own[(b * kLanes + lane) * D + c] = ca[c];
+    if ((b + 1) % (kTile / kLanes) == 0 || b + 1 == n_blk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          acc[r][c] += static_cast<double>(a[r][c]);
+          a[r][c] = 0.0f;
+        }
+      }
+    }
+  }
+
+  // the gaussian sums carry the opposite sign; a column's term is the
+  // row's with the difference reversed
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row[r] - row_off;
+    if (i < m) {
+      const size_t at = (static_cast<size_t>(blockIdx.y) * m + i) * D;
+#pragma unroll
+      for (int c = 0; c < D; ++c) part_q[at + c] = kGaussian ? -acc[r][c] : acc[r][c];
+    }
+  }
+  __syncthreads();
+  double* out = part_db + (static_cast<size_t>(blockIdx.x) * n_cols + c0) * D;
+  for (int e = threadIdx.x; e < len * D; e += kThreads) {
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += static_cast<double>(cs[w * (n_blk * kLanes * D) + e]);
+    out[e] = kGaussian ? s : -s;
+  }
+}
+
+// dZq: a warp a row, lane l summing chunks l, l + 32, ... in order, then
+// the lanes' sums by a fixed xor tree (many chunks of few rows would leave
+// a thread a row latency-bound); dZdb: a thread an entry, the row tiles in
+// order. All in double. Blocks below q_blocks take dZq.
+template <int D>
+__global__ void rowlse_bwd_general_merge_kernel(const double* __restrict__ part_q,
+                                                const double* __restrict__ part_db,
+                                                float* __restrict__ dzq, float* __restrict__ dzdb,
+                                                int m, int nd, int n_chunks, int n_tiles,
+                                                int q_blocks) {
+  if (static_cast<int>(blockIdx.x) < q_blocks) {
+    const int i = blockIdx.x * (kMergeThreads / kLanes) + threadIdx.x / kLanes;
+    const int lane = threadIdx.x & (kLanes - 1);
+    if (i >= m) return;  // the whole warp
+    double s[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) s[c] = 0.0;
+    for (int k = lane; k < n_chunks; k += kLanes) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) s[c] += part_q[(static_cast<size_t>(k) * m + i) * D + c];
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off /= 2) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) s[c] += __shfl_xor_sync(kFullMask, s[c], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) dzq[static_cast<size_t>(i) * D + c] = static_cast<float>(2.0 * s[c]);
+    }
+    return;
+  }
+  const int f = (blockIdx.x - q_blocks) * kMergeThreads + threadIdx.x;
+  if (f >= nd) return;
+  double s = 0.0;
+  for (int t = 0; t < n_tiles; ++t) s += part_db[static_cast<size_t>(t) * nd + f];
+  dzdb[f] = static_cast<float>(2.0 * s);
 }
 
 template <int D>
 int general(const float* Zq, const float* Zdb, const float* lse, const float* g, float* dzq,
-            float* dzdb, double* part, int m, int n_cols, int row_off, int n_chunks_a,
-            int chunk_a, int n_chunks_b, int chunk_b, bool gaussian, cudaStream_t stream) {
-  const int rc = pass<D, kRowSide>(Zq, lse, g, Zdb, nullptr, nullptr, dzq, part, m, n_cols,
-                                   row_off, 0, n_chunks_a, chunk_a, gaussian, stream);
-  if (rc != 0) return rc;
-  double* part_b = part + static_cast<size_t>(n_chunks_a) * m * D;
-  return pass<D, kColSide>(Zdb, nullptr, nullptr, Zq, lse, g, dzdb, part_b, n_cols, m, 0,
-                           row_off, n_chunks_b, chunk_b, gaussian, stream);
+            float* dzdb, double* part, int m, int n_cols, int row_off, int n_chunks, int chunk,
+            bool gaussian, cudaStream_t stream, int* kernels) {
+  if (n_chunks <= 0 || chunk <= 0 || chunk % kLanes != 0 ||
+      static_cast<long long>(n_chunks) * chunk < n_cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t staged_bytes =
+      static_cast<size_t>(chunk) * General<D>::kColFloats * sizeof(float);
+  if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = General<D>::kRows * kThreads;
+  const int n_tiles = (m + rows - 1) / rows;
+  const dim3 grid(n_tiles, n_chunks);
+  double* part_db = part + static_cast<size_t>(n_chunks) * m * D;
+  if (gaussian) {
+    rowlse_bwd_general_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+        Zq, Zdb, lse, g, part, part_db, m, n_cols, row_off, chunk);
+  } else {
+    rowlse_bwd_general_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+        Zq, Zdb, lse, g, part, part_db, m, n_cols, row_off, chunk);
+  }
+  ++*kernels;
+  const int q_blocks = (m + kMergeThreads / kLanes - 1) / (kMergeThreads / kLanes);
+  const int nd = n_cols * D;
+  rowlse_bwd_general_merge_kernel<D>
+      <<<q_blocks + (nd + kMergeThreads - 1) / kMergeThreads, kMergeThreads, 0, stream>>>(
+          part, part_db, dzq, dzdb, m, nd, n_chunks, n_tiles, q_blocks);
+  ++*kernels;
+  return static_cast<int>(cudaGetLastError());
 }
-
 }  // namespace
 
 // C interface, loaded with ctypes. Z (n, d), lse (n,), g (n,) and out (n, d)
@@ -373,6 +604,8 @@ extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* o
                           void* part, int n, int d, int n_chunks, int chunk,
                           int gaussian, void* stream) {
   if (n <= 0) return 0;
+  if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* z = static_cast<const float*>(Z);
   const auto* l = static_cast<const float*>(lse);
   const auto* gp = static_cast<const float*>(g);
@@ -381,29 +614,31 @@ extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* o
   const bool gs = gaussian != 0;
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return square<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 2: return square<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 3: return square<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 4: return square<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 5: return square<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 6: return square<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 7: return square<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 8: return square<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 1: return launch<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 2: return launch<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 3: return launch<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 4: return launch<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 5: return launch<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 6: return launch<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 7: return launch<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 8: return launch<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The general form: Zq (m, d) with its lse (m,) and g (m,) holds the rows
 // of global ids row_off + i; Zdb's first n_cols rows are the columns. Writes
-// dzq (m, d) and dzdb (n_cols, d). part is scratch of (n_chunks_a m +
-// n_chunks_b n_cols) d doubles: pass A's chunks cut the n_cols columns,
-// pass B's the m rows of Zq. Every row and column passed is live.
+// dzq (m, d) and dzdb (n_cols, d). part is scratch of (n_chunks m + row
+// tiles n_cols) d doubles, the row tiles being of kRows * kThreads rows;
+// column chunk k covers [k * chunk, min(n_cols, (k + 1) * chunk)), chunk a
+// multiple of 32 whose staging fits kMaxStaged bytes. Every row and column
+// passed is live. Adds the kernels it launched to *kernels.
 extern "C" int rowlse_bwd_general(const void* Zq, const void* Zdb, const void* lse,
                                   const void* g, void* dzq, void* dzdb, void* part, int m,
-                                  int n_cols, int row_off, int d, int n_chunks_a, int chunk_a,
-                                  int n_chunks_b, int chunk_b, int gaussian, void* stream) {
+                                  int n_cols, int row_off, int d, int n_chunks, int chunk,
+                                  int gaussian, int* kernels, void* stream) {
   if (m <= 0 || n_cols <= 0) return 0;
-  if (row_off < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (row_off < 0 || kernels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const auto* zq = static_cast<const float*>(Zq);
   const auto* zd = static_cast<const float*>(Zdb);
   const auto* l = static_cast<const float*>(lse);
@@ -413,10 +648,10 @@ extern "C" int rowlse_bwd_general(const void* Zq, const void* Zdb, const void* l
   auto* p = static_cast<double*>(part);
   const bool gs = gaussian != 0;
   auto st = static_cast<cudaStream_t>(stream);
-#define TDR_GENERAL(D)                                                                      \
-  case D:                                                                                   \
-    return general<D>(zq, zd, l, gp, oq, od, p, m, n_cols, row_off, n_chunks_a, chunk_a, \
-                      n_chunks_b, chunk_b, gs, st);
+#define TDR_GENERAL(D)                                                                   \
+  case D:                                                                                \
+    return general<D>(zq, zd, l, gp, oq, od, p, m, n_cols, row_off, n_chunks, chunk, gs, \
+                      st, kernels);
   switch (d) {
     TDR_GENERAL(1)
     TDR_GENERAL(2)

@@ -18,7 +18,38 @@
 // and the two counts; both share the tile loop (pair_tile, pair_group). With
 // a shard of m << n rows (m = 2,500 of n = 10,000 on a 4-way mesh) the grid
 // has fewer row tiles and the wrapper cuts the columns into more chunks, to
-// keep whole waves.
+// keep whole waves. Two things differ from the square form:
+//
+// - Gaussian: each exp2 is issued against its row's current shift as soon
+//   as its d^2 is known (kEager), each row's least d^2 kept alongside, and
+//   one test of the thread's rows against move_below follows a group; a
+//   row whose reference moves (rare after its first group, which keeps the
+//   serial order) sums the group again against the new shift. The serial
+//   order made every exp2 of a group wait on its row's fminf chain and
+//   branch: 2.1x the one-exp2-a-pair floor at 12,500 x 50,000 (PERF.md
+//   section 6). The terms, and the overflow argument below, are those of
+//   the serial order.
+// - The merge takes a warp a row (rowlse_shard_merge_kernel): with many
+//   chunks of few rows, a thread a row waited on its chunks one by one.
+// - Student, where the caller's rows are the database's rows row_off ...
+//   row_off + m - 1 and the wrapper's rule (reduce_kernel.k2_general_grid)
+//   takes it (kShared): the shard's own m x m block evaluates each unordered
+//   pair once. A block of 32 own columns is walked as the general K3 walks
+//   its columns (rowlse_bwd.cu: lane l takes column (l + t) mod 32 at step
+//   t, the column's running sum passed one lane down), a pair of rows
+//   sharing one reciprocal; the pair's value goes to its row and to its
+//   column. Blocks of 32 columns wholly below the row tile are skipped (the
+//   transposed block counts them), those above take no mask. Column sums
+//   are added over the warps in order and written per (row tile, own
+//   column); the merge adds them to the rows' sums. About 8 instructions
+//   a pair (a step's arithmetic, one shuffle and one load for 4 pairs), for
+//   the two orders the plain loop pays 12.8 for. The rule takes
+//   it only where the grid has three waves or more: the skipped blocks free
+//   their slots to later waves, while in one wave the heavier blocks set
+//   the time (PERF.md section 6: 10 % faster at 12,500 x 50,000, 40 % slower
+//   at 2,500 x 10,000). The gaussian mode keeps both orders: a term's
+//   value is relative to its row's shift, so a column would need one more
+//   exp2.
 //
 // Bound. The kernel reads Z (n d floats) and writes n floats: 0.12 MB at
 // n = 10,000, d = 2, a few hundredths of a microsecond of memory time. The
@@ -115,6 +146,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNoTerm = 1.0e38f;   // gaussian: the reference d^2 before any term
 constexpr float kSlack = 44.0f;      // gaussian: how far d^2 may fall below the reference
 constexpr float kNoTermShift = 1.0e37f;  // a merged shift above this: a row with no term
+constexpr int kLanes = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMergeThreads = 256;  // the general form's merge: a warp a row
 
 template <int D>
 struct Shape {
@@ -168,9 +202,28 @@ struct RowState {
   float move_below[R];
 };
 
+// d^2 of a row and a staged column, the coordinates summed in order.
+template <int D, int P>
+__device__ __forceinline__ float sq_dist(const float (&zi)[D], const float (&zj)[P]) {
+  const float d0 = zi[0] - zj[0];
+  float a = d0 * d0;
+#pragma unroll
+  for (int c = 1; c < D; ++c) {
+    const float diff = zi[c] - zj[c];
+    a = fmaf(diff, diff, a);
+  }
+  return a;
+}
+
 // G staged columns, starting at cols (global column j), against the
-// thread's R rows.
-template <int D, int G, bool kGaussian, bool kDiag>
+// thread's R rows. kEager (the general form's gaussian mode): every row's
+// exp2s are issued against its current shift as soon as their d^2 are
+// known, each row's least d^2 is kept alongside, and one test of the rows
+// against move_below follows the group; a row whose reference moves (rare
+// after its first group) sums its group again against the new shift. The
+// terms are those of the serial order below, where each exp2 waits on its
+// row's fminf chain and branch; a row's group is summed before it is added.
+template <int D, int G, bool kGaussian, bool kDiag, bool kEager = false>
 __device__ __forceinline__ void pair_group(const float* cols, int j,
                                            const float (&zi)[Shape<D>::kRows][D],
                                            const int (&row)[Shape<D>::kRows],
@@ -180,6 +233,46 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
   float zj[G][P];
 #pragma unroll
   for (int u = 0; u < G; ++u) load_record<P>(cols + u * P, zj[u]);
+  if constexpr (kGaussian && kEager) {
+    float t[R], least[R];
+    bool moved = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      t[r] = 0.0f;
+      least[r] = INFINITY;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        float a = sq_dist<D, P>(zi[r], zj[u]);
+        if (kDiag) a = (j + u == row[r]) ? INFINITY : a;
+        least[r] = fminf(least[r], a);
+        t[r] += ex2_approx(fmaf(a, -kLog2e, st.shift[r]));
+      }
+      moved |= least[r] < st.move_below[r];
+    }
+    if (moved) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (least[r] < st.move_below[r]) {  // move the reference, sum the group again
+          const float shift = least[r] * kLog2e;
+          const float scale = ex2_approx(shift - st.shift[r]);
+          st.s[r] *= scale;
+          st.S[r] *= static_cast<double>(scale);
+          st.shift[r] = shift;
+          st.move_below[r] = least[r] - kSlack;
+          t[r] = 0.0f;
+#pragma unroll
+          for (int u = 0; u < G; ++u) {
+            float a = sq_dist<D, P>(zi[r], zj[u]);
+            if (kDiag) a = (j + u == row[r]) ? INFINITY : a;
+            t[r] += ex2_approx(fmaf(a, -kLog2e, shift));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) st.s[r] += t[r];
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (!kGaussian && !kDiag && G % 2 == 0) {
@@ -240,17 +333,22 @@ __device__ __forceinline__ void pair_group(const float* cols, int j,
 }
 
 // One staged tile of len <= kTile columns: a float32 run per row, added to
-// the double sums at its end.
-template <int D, bool kGaussian, bool kDiag>
+// the double sums at its end. With kEager, the chunk's first group (first)
+// takes the serial order: there every row's reference moves from kNoTerm.
+template <int D, bool kGaussian, bool kDiag, bool kEager = false>
 __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
                                           const float (&zi)[Shape<D>::kRows][D],
                                           const int (&row)[Shape<D>::kRows],
-                                          RowState<Shape<D>::kRows>& st) {
+                                          RowState<Shape<D>::kRows>& st, bool first = false) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   int t = 0;
+  if (kEager && first && kUnroll <= len) {
+    pair_group<D, kUnroll, kGaussian, kDiag>(cols, j0, zi, row, st);
+    t = kUnroll;
+  }
   for (; t + kUnroll <= len; t += kUnroll)
-    pair_group<D, kUnroll, kGaussian, kDiag>(cols + t * P, j0 + t, zi, row, st);
+    pair_group<D, kUnroll, kGaussian, kDiag, kEager>(cols + t * P, j0 + t, zi, row, st);
   for (; t < len; ++t) pair_group<D, 1, kGaussian, kDiag>(cols + t * P, j0 + t, zi, row, st);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -311,17 +409,74 @@ rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
   }
 }
 
+// The shard's own columns, each unordered pair once (student, kShared): a
+// block of 32 own columns (local ids jl0 + k, k < live) against the
+// thread's R rows (local ids rl), in 32 steps as rowlse_bwd.cu's general
+// kernel walks them: the lane takes column k = (lane + t) mod 32 and holds
+// its running sum, passed one lane down after the step. Two rows share one
+// reciprocal: 1/a0 = a1 rcp(a0 a1), 1/a1 = a0 rcp(a0 a1), and the column
+// takes their sum (a0 + a1) rcp(a0 a1). Unmasked: every column lies above
+// every row. kMask: a pair counts for its row where jl > i (or jl == i and
+// the diagonal is kept) and for its column where jl > i; padding neither.
+template <int D, bool kMask>
+__device__ __forceinline__ float own_block(const float* zb, int jl0, int live, int lane,
+                                           const float (&zi)[Shape<D>::kRows][D],
+                                           const int (&rl)[Shape<D>::kRows], bool keep_diag,
+                                           RowState<Shape<D>::kRows>& st) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  const int from = (lane + 1) & (kLanes - 1);
+  float ca = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kLanes; ++t) {
+    float zj[P];
+    load_record<P>(zb + t * P, zj);
+    const int k = (lane + t) & (kLanes - 1);
+    const int jl = jl0 + k;
+#pragma unroll
+    for (int r = 0; r < R; r += 2) {
+      float a0 = 1.0f, a1 = 1.0f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        const float d0 = zi[r][c] - zj[c];
+        const float d1 = zi[r + 1][c] - zj[c];
+        a0 = fmaf(d0, d0, a0);
+        a1 = fmaf(d1, d1, a1);
+      }
+      const float rc = rcp_approx(a0 * a1);
+      if (!kMask) {
+        st.s[r] = fmaf(a1, rc, st.s[r]);
+        st.s[r + 1] = fmaf(a0, rc, st.s[r + 1]);
+        ca = fmaf(a0 + a1, rc, ca);
+      } else {
+        // bitwise, so that the tests are predicates and not branches
+        const float q0 = a1 * rc, q1 = a0 * rc;
+        const bool in = k < live;
+        const bool up0 = in & (jl > rl[r]), up1 = in & (jl > rl[r + 1]);
+        const bool diag0 = in & keep_diag & (jl == rl[r]);
+        const bool diag1 = in & keep_diag & (jl == rl[r + 1]);
+        st.s[r] += (up0 | diag0) ? q0 : 0.0f;
+        st.s[r + 1] += (up1 | diag1) ? q1 : 0.0f;
+        ca += (up0 ? q0 : 0.0f) + (up1 ? q1 : 0.0f);
+      }
+    }
+    ca = __shfl_sync(kFullMask, ca, from);
+  }
+  return ca;
+}
+
 // The general form: rows are the m rows of Zq, global ids row_off + i;
 // columns the n_cols rows of Zdb, global ids j. The same tiles, staging and
 // accumulation as the square kernel above, which stays a kernel of its own:
 // a kernel serving both forms (the offset and the row count in registers, or
 // even known to the compiler at 0) ran the square gaussian mode slower at
 // n = 50,000 (PERF.md section 6).
-template <int D, bool kGaussian>
+template <int D, bool kGaussian, bool kShared>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
-                    double* __restrict__ part_s, double* __restrict__ part_c, int m, int n_cols,
-                    int row_off, int chunk, int exclude_diag) {
+                    double* __restrict__ part_s, double* __restrict__ part_c,
+                    double* __restrict__ part_col, int m, int n_cols, int row_off, int chunk,
+                    int exclude_diag) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   extern __shared__ float4 staged[];
@@ -333,6 +488,23 @@ rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
   for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
 #pragma unroll
     for (int c = 0; c < D; ++c) cols[t * P + c] = Zdb[static_cast<size_t>(c0 + t) * D + c];
+  }
+  // kShared: the chunk's own columns (the shard's rows), each block of 32
+  // staged twice, and each warp's column sums
+  const int o0 = kShared ? max(c0, min(c1, row_off)) : c1;
+  const int o1 = kShared ? max(o0, min(c1, row_off + m)) : c1;
+  const int own = o1 - o0;
+  const int n_blk = (own + kLanes - 1) / kLanes;
+  const int blk_cap = chunk / kLanes;  // blocks of 32 a chunk holds
+  float* dbl = cols + chunk * P;
+  float* cs = dbl + blk_cap * 2 * kLanes * P;
+  if (kShared) {
+    for (int e = threadIdx.x; e < n_blk * 2 * kLanes; e += kThreads) {
+      const int col = (e / (2 * kLanes)) * kLanes + (e & (kLanes - 1));
+#pragma unroll
+      for (int c = 0; c < P; ++c)
+        dbl[e * P + c] = (c < D && col < own) ? Zdb[static_cast<size_t>(o0 + col) * D + c] : 0.0f;
+    }
   }
 
   // global row ids, which the diagonal test compares with column ids; the
@@ -354,16 +526,46 @@ rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
   __syncthreads();
 
   const int g0 = row_off + r0;  // the block's first global row id
-  for (int j0 = c0; j0 < c1; j0 += kTile) {
-    const int len = min(kTile, c1 - j0);
-    const float* tile = cols + (j0 - c0) * P;
-    // only a tile whose columns meet the block's global rows can hold a
-    // diagonal term
-    if (exclude_diag && j0 < g0 + R * kThreads && g0 < j0 + len)
-      pair_tile<D, kGaussian, true>(tile, j0, len, zi, row, st);
-    else
-      pair_tile<D, kGaussian, false>(tile, j0, len, zi, row, st);
+  // the columns outside the shard's own block (all of them without kShared)
+  auto outside = [&](int lo, int hi) {
+    for (int j0 = lo; j0 < hi; j0 += kTile) {
+      const int len = min(kTile, hi - j0);
+      const float* tile = cols + (j0 - c0) * P;
+      // only a tile whose columns meet the block's global rows can hold a
+      // diagonal term
+      if (exclude_diag && j0 < g0 + R * kThreads && g0 < j0 + len)
+        pair_tile<D, kGaussian, true, kGaussian>(tile, j0, len, zi, row, st, j0 == c0);
+      else
+        pair_tile<D, kGaussian, false, kGaussian>(tile, j0, len, zi, row, st, j0 == c0);
+    }
+  };
+  outside(c0, o0);
+  if (kShared && own > 0) {
+    const int lane = threadIdx.x & (kLanes - 1);
+    int rl[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) rl[r] = row[r] - row_off;
+    float* mine = cs + (threadIdx.x / kLanes) * (blk_cap * kLanes);
+    for (int b = 0; b < n_blk; ++b) {
+      const int jl0 = o0 - row_off + b * kLanes;
+      const int live = own - b * kLanes;
+      const float* zb = dbl + (b * 2 * kLanes + lane) * P;
+      float ca = 0.0f;  // a block wholly below the rows: its pairs are counted transposed
+      if (live >= kLanes && jl0 > r0 + R * kThreads - 1)
+        ca = own_block<D, false>(zb, jl0, live, lane, zi, rl, !exclude_diag, st);
+      else if (live < kLanes || jl0 + kLanes - 1 >= r0)
+        ca = own_block<D, true>(zb, jl0, live, lane, zi, rl, !exclude_diag, st);
+      mine[b * kLanes + lane] = ca;
+      if ((b + 1) % (kTile / kLanes) == 0 || b + 1 == n_blk) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          st.S[r] += static_cast<double>(st.s[r]);
+          st.s[r] = 0.0f;
+        }
+      }
+    }
   }
+  outside(o1, c1);
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -372,6 +574,15 @@ rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
       const size_t at = static_cast<size_t>(blockIdx.y) * m + i;
       part_s[at] = st.S[r];
       if (kGaussian) part_c[at] = static_cast<double>(st.shift[r]);
+    }
+  }
+  if (kShared) {  // this row tile's column sums of the chunk's own columns, warps in order
+    __syncthreads();
+    for (int e = threadIdx.x; e < own; e += kThreads) {
+      double sum = 0.0;
+#pragma unroll
+      for (int w = 0; w < kThreads / kLanes; ++w) sum += static_cast<double>(cs[w * (blk_cap * kLanes) + e]);
+      part_col[static_cast<size_t>(blockIdx.x) * m + (o0 - row_off) + e] = sum;
     }
   }
 }
@@ -404,61 +615,126 @@ __global__ void rowlse_merge_kernel(const double* __restrict__ part_s,
   out[i] = static_cast<float>(log(S) - shift * 0.6931471805599453);
 }
 
+// The general form's merge: the same function, a warp a row. Lane l takes
+// chunks l, l + 32, ...; the least shift is a warp minimum (exact), and the
+// lanes' sums are added by a fixed xor tree, so the result repeats bit for
+// bit. A shard of few rows has many chunks, where a thread a row would wait
+// on its chunks one after another.
+template <bool kGaussian>
+__global__ void rowlse_shard_merge_kernel(const double* __restrict__ part_s,
+                                          const double* __restrict__ part_c,
+                                          const double* __restrict__ part_col,
+                                          float* __restrict__ out, int m, int n_chunks,
+                                          int n_tiles) {
+  const int i = blockIdx.x * (kMergeThreads / kLanes) + threadIdx.x / kLanes;
+  const int lane = threadIdx.x & (kLanes - 1);
+  if (i >= m) return;  // the whole warp
+  double shift = 0.0;
+  if (kGaussian) {
+    shift = INFINITY;
+    for (int k = lane; k < n_chunks; k += kLanes)
+      shift = fmin(shift, part_c[static_cast<size_t>(k) * m + i]);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off /= 2)
+      shift = fmin(shift, __shfl_xor_sync(kFullMask, shift, off));
+    if (shift > static_cast<double>(kNoTermShift)) {
+      if (lane == 0) out[i] = -INFINITY;
+      return;
+    }
+  }
+  double S = 0.0;
+  for (int k = lane; k < n_chunks; k += kLanes) {
+    const size_t at = static_cast<size_t>(k) * m + i;
+    S += kGaussian ? part_s[at] * exp2(shift - part_c[at]) : part_s[at];
+  }
+  if (part_col != nullptr) {  // the shard's own pairs counted at their column
+    for (int t = lane; t < n_tiles; t += kLanes) S += part_col[static_cast<size_t>(t) * m + i];
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off /= 2) S += __shfl_xor_sync(kFullMask, S, off);
+  if (lane == 0) out[i] = static_cast<float>(log(S) - shift * 0.6931471805599453);
+}
+
 template <int D>
 int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, int n_cols,
-           int row_off, int n_chunks, int chunk, bool gaussian, int exclude_diag,
+           int row_off, int n_chunks, int chunk, bool gaussian, int exclude_diag, bool shared,
            cudaStream_t stream) {
-  const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
+  constexpr int P = Shape<D>::kRec;
+  if (shared && (gaussian || chunk % kLanes != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t staged_bytes =
+      (static_cast<size_t>(chunk) * P +
+       (shared ? static_cast<size_t>(chunk) * (2 * P + kThreads / kLanes) : 0)) *
+      sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
-  const dim3 grid((m + rows - 1) / rows, n_chunks);
+  const int n_tiles = (m + rows - 1) / rows;
+  const dim3 grid(n_tiles, n_chunks);
   const int merge_blocks = (m + 255) / 256;
+  const int shard_merge_blocks = (m + kMergeThreads / kLanes - 1) / (kMergeThreads / kLanes);
   double* part_c = part + static_cast<size_t>(n_chunks) * m;
-  const bool square = Zq == Zdb && m == n_cols && row_off == 0;
+  double* part_col = shared ? part_c : nullptr;  // student: no shifts
+  const bool square = Zq == Zdb && m == n_cols && row_off == 0 && !shared;
   if (gaussian) {
     if (square)
       rowlse_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, part, part_c, m, chunk, exclude_diag);
     else
-      rowlse_shard_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
-          Zq, Zdb, part, part_c, m, n_cols, row_off, chunk, exclude_diag);
-    rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+      rowlse_shard_kernel<D, true, false><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, Zdb, part, part_c, nullptr, m, n_cols, row_off, chunk, exclude_diag);
+    if (square)
+      rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+    else
+      rowlse_shard_merge_kernel<true><<<shard_merge_blocks, kMergeThreads, 0, stream>>>(
+          part, part_c, nullptr, out, m, n_chunks, n_tiles);
   } else {
     if (square)
       rowlse_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, part, part_c, m, chunk, exclude_diag);
+    else if (shared)
+      rowlse_shard_kernel<D, false, true><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, Zdb, part, nullptr, part_col, m, n_cols, row_off, chunk, exclude_diag);
     else
-      rowlse_shard_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
-          Zq, Zdb, part, part_c, m, n_cols, row_off, chunk, exclude_diag);
-    rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+      rowlse_shard_kernel<D, false, false><<<grid, kThreads, staged_bytes, stream>>>(
+          Zq, Zdb, part, part_c, nullptr, m, n_cols, row_off, chunk, exclude_diag);
+    if (square)
+      rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+    else
+      rowlse_shard_merge_kernel<false><<<shard_merge_blocks, kMergeThreads, 0, stream>>>(
+          part, part_c, part_col, out, m, n_chunks, n_tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int n_cols,
              int row_off, int d, int n_chunks, int chunk, int gaussian, int exclude_diag,
-             void* stream) {
+             int shared, void* stream) {
   if (m <= 0) return 0;
   if (n_cols <= 0 || n_chunks <= 0 || chunk <= 0 ||
-      static_cast<long long>(n_chunks) * chunk < n_cols || row_off < 0)
+      static_cast<long long>(n_chunks) * chunk < n_cols || row_off < 0 ||
+      (shared && static_cast<long long>(row_off) + m > n_cols))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* zq = static_cast<const float*>(Zq);
   const auto* zd = static_cast<const float*>(Zdb);
   auto* o = static_cast<float*>(out);
   auto* p = static_cast<double*>(part);
-  const bool g = gaussian != 0;
+  const bool g = gaussian != 0, sh = shared != 0;
   auto st = static_cast<cudaStream_t>(stream);
+#define TDR_LAUNCH(D)                                                                       \
+  case D:                                                                                   \
+    return launch<D>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, sh, \
+                     st);
   switch (d) {
-    case 1: return launch<1>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 2: return launch<2>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 3: return launch<3>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 4: return launch<4>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 5: return launch<5>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 6: return launch<6>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 7: return launch<7>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
-    case 8: return launch<8>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, st);
+    TDR_LAUNCH(1)
+    TDR_LAUNCH(2)
+    TDR_LAUNCH(3)
+    TDR_LAUNCH(4)
+    TDR_LAUNCH(5)
+    TDR_LAUNCH(6)
+    TDR_LAUNCH(7)
+    TDR_LAUNCH(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TDR_LAUNCH
 }
 
 }  // namespace
@@ -470,7 +746,8 @@ int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int 
 // must fit kMaxStaged bytes. Returns the first CUDA error (0 on success).
 extern "C" int rowlse_fwd(const void* Z, void* out, void* part, int n, int d, int n_chunks,
                           int chunk, int gaussian, int exclude_diag, void* stream) {
-  return dispatch(Z, Z, out, part, n, n, 0, d, n_chunks, chunk, gaussian, exclude_diag, stream);
+  return dispatch(Z, Z, out, part, n, n, 0, d, n_chunks, chunk, gaussian, exclude_diag, 0,
+                  stream);
 }
 
 // The general form: Zq (m, d) holds the rows of global ids row_off + i,
@@ -480,7 +757,7 @@ extern "C" int rowlse_fwd(const void* Z, void* out, void* part, int n, int d, in
 // is at or past n_total.
 extern "C" int rowlse_fwd_general(const void* Zq, const void* Zdb, void* out, void* part, int m,
                                   int n_cols, int row_off, int d, int n_chunks, int chunk,
-                                  int gaussian, int exclude_diag, void* stream) {
+                                  int gaussian, int exclude_diag, int shared, void* stream) {
   return dispatch(Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian,
-                  exclude_diag, stream);
+                  exclude_diag, shared, stream);
 }

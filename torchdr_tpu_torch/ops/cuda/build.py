@@ -46,14 +46,16 @@ SIGNATURES = {
     },
     "rowlse_fwd": {
         "rowlse_fwd": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V],
-        # Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian, diag, stream
-        "rowlse_fwd_general": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _V],
+        # Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian, diag,
+        # shared, stream
+        "rowlse_fwd_general": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _I, _V],
     },
     "rowlse_bwd": {
         "rowlse_bwd": [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V],
-        # Zq, Zdb, lse, g, dzq, dzdb, part, m, n_cols, row_off, d, n_chunks_a,
-        # chunk_a, n_chunks_b, chunk_b, gaussian, stream
-        "rowlse_bwd_general": [_V, _V, _V, _V, _V, _V, _V, *[_I] * 9, _V],
+        # Zq, Zdb, lse, g, dzq, dzdb, part, m, n_cols, row_off, d, n_chunks,
+        # chunk, gaussian, kernels launched (int*), stream
+        "rowlse_bwd_general": [_V, _V, _V, _V, _V, _V, _V, *[_I] * 7,
+                               ctypes.POINTER(ctypes.c_int), _V],
     },
     "bucket_gather": {
         "bucket_take": _GATHER,

@@ -39,11 +39,15 @@ it are masked. It serves the row-sharded row log-sum
   k(‖zq_i − zdb_j‖²), −inf for a row past ``n_total``;
 - :func:`rowlse_bwd_general` gives (dZq, dZdb): dZq_i = 2 Σ_j c_ij (zq_i −
   zdb_j) and dZdb_j = 2 Σ_i c_ij (zdb_j − zq_i), with the one-sided
-  c_ij = −g_i e^(−lse_i) q_ij² or −g_i e^(−d²_ij − lse_i).
+  c_ij = −g_i e^(−lse_i) q_ij² or −g_i e^(−d²_ij − lse_i), in one pass
+  over the pairs: each pair is evaluated once and its term added to its
+  row's sum and its column's (:func:`general_bwd_grid` sizes the grid and
+  the scratch).
 
-They launch the same kernels as the square form (their own C entry points),
-count their launches apart (``rowlse_fwd_general.launches``,
-``rowlse_bwd_general.launches``), and take their plain versions
+They have their own kernels and C entry points, count their launches apart
+(``rowlse_fwd_general.launches``, ``rowlse_bwd_general.launches``; the
+kernels a ``rowlse_bwd_general`` call launched, a pair loop and a merge,
+in ``rowlse_bwd_general.kernel_launches``), and take their plain versions
 (:func:`rowlse_fwd_general_plain`, :func:`rowlse_bwd_general_plain`: the
 JAX package's ``_rowlse_fwd_general`` and ``_rowlse_bwd_general``) only for
 CPU tensors. The kernels read no row of Zdb at or past ``min(n_db,
@@ -52,6 +56,8 @@ rows and columns only and fill the others (−inf, zeros).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -69,6 +75,12 @@ _BLOCKS_PER_SM = 6  # kBlocksPerSM: resident blocks per SM, which the launch bou
 # of it reserved per block, holds that many blocks
 _STAGED_BYTES = 227 * 1024 // _BLOCKS_PER_SM - 1024
 _MIN_CHUNK = 64  # fewest columns worth a block of its own
+_LANES = 32  # the general kernels walk summed columns in blocks of a warp's width
+_WARPS = _THREADS // _LANES
+# the general K2 sharing the shard's own block: its grid's waves, and its
+# shortest chunk (a float32 run, kTile)
+_SHARED_WAVES = 3
+_SHARED_MIN_CHUNK = 256
 
 
 def _check_z(Z, kernel):
@@ -94,22 +106,34 @@ def _check_cuda(Z, fn_name):
         raise ValueError(f"{fn_name} takes 1 <= d <= {MAX_D} on the card, got d={Z.shape[1]}.")
 
 
+def _round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
 def rows_per_block(d: int) -> int:
     """Rows of Z one block owns: each thread a register tile of 4 rows, or
     2 above d = 4."""
     return _THREADS * (_ROWS_PER_THREAD if d <= 4 else (_ROWS_PER_THREAD + 1) // 2)
 
 
-def column_bytes(d: int, backward: bool) -> int:
-    """Bytes of one staged column: z_j padded to an aligned vector (K2), or
-    z_j with u_j, or g_j and lse_j, padded to whole float4s (K3)."""
+def column_bytes(d: int, backward: bool, columns_summed: bool = False) -> int:
+    """Bytes of shared memory one staged column takes: z_j padded to an
+    aligned vector (K2); z_j with u_j, or g_j and lse_j, padded to whole
+    float4s (the square K3). Where the kernel also sums over its columns
+    (``columns_summed``), each block of 32 columns is staged twice beside
+    each warp's float32 column sums: z_j twice and d sums (the general K3),
+    or z_j three times and one sum (the general K2 sharing the shard's own
+    block)."""
+    rec = 1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8
+    if columns_summed:
+        return 4 * (2 * rec + _WARPS * d) if backward else 4 * (3 * rec + _WARPS)
     if backward:
         return 4 * ((d + 2 + 3) // 4 * 4)
-    return 4 * (1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8)
+    return 4 * rec
 
 
 def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False,
-                  n_rows: int | None = None):
+                  n_rows: int | None = None, columns_summed: bool = False):
     """(n_chunks, chunk): column chunk k covers [k·chunk, min(n, (k+1)·chunk)).
 
     The (row tiles × column chunks) grid fills whole waves of resident
@@ -118,19 +142,62 @@ def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False,
     fits the staging budget, else the fewest waves that do. A chunk holds
     at least ``_MIN_CHUNK`` columns, unless n is smaller. The grid has
     ``n_rows`` rows (default n, the square form): fewer rows, more chunks.
+    A kernel that sums over its columns (``columns_summed``) takes chunks
+    of whole blocks of 32 columns.
     """
+    granule = _LANES if columns_summed else 1
     row_tiles = -(-(n if n_rows is None else n_rows) // rows_per_block(d))
     wave = sm_count * _BLOCKS_PER_SM
-    fewest = -(-n // (_STAGED_BYTES // column_bytes(d, backward)))
+    most = _STAGED_BYTES // column_bytes(d, backward, columns_summed) // granule * granule
+    fewest = -(-n // most)
     waves = max(1, -(-row_tiles * fewest // wave))
     n_chunks = max(fewest, min(waves * wave // row_tiles, -(-n // _MIN_CHUNK)))
-    chunk = -(-n // n_chunks)
+    chunk = _round_up(-(-n // n_chunks), granule)
     return -(-n // chunk), chunk
 
 
-def staged_bytes(chunk: int, d: int, backward: bool) -> int:
+def general_bwd_grid(m: int, n_cols: int, sm_count: int, d: int = 2):
+    """The general K3's grid and scratch for m live rows against n_cols
+    live columns: (row tiles, n_chunks, chunk, scratch doubles). Row tile t
+    covers rows [t·rows_per_block(d), ...); column chunk k covers [k·chunk,
+    min(n_cols, (k+1)·chunk)), chunk a multiple of 32; the scratch holds
+    each chunk's partial of dZq, (n_chunks, m, d), then each row tile's
+    partial of dZdb, (row tiles, n_cols, d)."""
+    n_chunks, chunk = column_chunks(n_cols, sm_count, d, backward=True, n_rows=m,
+                                    columns_summed=True)
+    row_tiles = -(-m // rows_per_block(d))
+    return row_tiles, n_chunks, chunk, (n_chunks * m + row_tiles * n_cols) * d
+
+
+def k2_general_grid(m: int, n_cols: int, row_offset: int, sm_count: int, d: int = 2,
+                    kernel: str = "student", shard_of_db: bool = False):
+    """The general K2's grid for m live rows against n_cols live columns:
+    (shared, n_chunks, chunk, row tiles).
+
+    ``shared``: the shard's own m × m block evaluates each unordered pair
+    once, in a grid of ``_SHARED_WAVES`` waves (chunks of whole blocks of 32
+    columns, within the staging budget): the blocks left idle below the
+    diagonal free their slots to later waves, where in one wave the blocks
+    that share (more work each) would set the time. Taken for the student
+    kernel, where the shard's rows are the database's rows [row_offset,
+    row_offset + m) (``shard_of_db``), and where those chunks hold at least
+    ``_SHARED_MIN_CHUNK`` columns; otherwise the plain grid
+    (:func:`column_chunks`).
+    """
+    row_tiles = -(-m // rows_per_block(d))
+    if kernel == "student" and shard_of_db and row_offset + m <= n_cols:
+        most = _STAGED_BYTES // column_bytes(d, False, columns_summed=True) // _LANES * _LANES
+        n_chunks = max(1, _SHARED_WAVES * sm_count * _BLOCKS_PER_SM // row_tiles)
+        chunk = min(most, _round_up(-(-n_cols // n_chunks), _LANES))
+        if chunk >= _SHARED_MIN_CHUNK:
+            return True, -(-n_cols // chunk), chunk, row_tiles
+    n_chunks, chunk = column_chunks(n_cols, sm_count, d, backward=False, n_rows=m)
+    return False, n_chunks, chunk, row_tiles
+
+
+def staged_bytes(chunk: int, d: int, backward: bool, columns_summed: bool = False) -> int:
     """Dynamic shared memory a block of the kernel asks for."""
-    return chunk * column_bytes(d, backward)
+    return chunk * column_bytes(d, backward, columns_summed)
 
 
 def _sq_block(Zb, Z):
@@ -263,12 +330,15 @@ def rowlse_bwd_general_plain(Zq, Zdb, row_offset, n_total, row_lse, g, kernel="s
 
 
 def rowlse_fwd_general(Zq, Zdb, row_offset, n_total, kernel="student", exclude_diag=True,
-                       block_size=1024):
+                       block_size=1024, shard_of_db=False):
     """Row log-sum of a query shard against the database: (m,) float32.
 
     ``row_offset`` is the global id of Zq's first row; rows and columns of
     global id ≥ ``n_total`` are masked (a masked row reads −inf).
-    ``block_size`` sets the row blocks of the plain version.
+    ``block_size`` sets the row blocks of the plain version. ``shard_of_db``
+    states that Zq's live rows are Zdb's rows ``row_offset`` onwards (the
+    row-sharded caller's case): the kernel may then evaluate the shard's
+    own block once a pair (:func:`k2_general_grid`).
     """
     _check_general(Zq, Zdb, row_offset, n_total, kernel)
     if Zq.device.type == "cpu":
@@ -284,13 +354,16 @@ def rowlse_fwd_general(Zq, Zdb, row_offset, n_total, kernel="student", exclude_d
     if n_cols == 0:
         raise ValueError("rowlse_fwd_general: no column below n_total.")
     gaussian = kernel == "gaussian"
-    n_chunks, chunk = column_chunks(n_cols, sm_count(Zq.device.index), d, backward=False,
-                                    n_rows=m_live)
-    part = torch.empty((2 if gaussian else 1, n_chunks, m_live), dtype=torch.float64,
-                       device=Zq.device)
+    shared, n_chunks, chunk, tiles = k2_general_grid(
+        m_live, n_cols, row_offset, sm_count(Zq.device.index), d, kernel, shard_of_db)
+    # the chunks' sums, then the gaussian chunks' shifts or the shared row
+    # tiles' column sums
+    extra = n_chunks if gaussian else tiles if shared else 0
+    part = torch.empty(((n_chunks + extra) * m_live,), dtype=torch.float64, device=Zq.device)
     rc = launch(
         fn, Zq, Zq.data_ptr(), Zdb.data_ptr(), out.data_ptr(), part.data_ptr(),
         m_live, n_cols, row_offset, d, n_chunks, chunk, int(gaussian), int(bool(exclude_diag)),
+        int(shared),
     )
     if rc != 0:
         raise RuntimeError(f"rowlse_fwd_general launch failed: cudaError {rc}.")
@@ -323,18 +396,15 @@ def rowlse_bwd_general(Zq, Zdb, row_offset, n_total, row_lse, g, kernel="student
     # the kernels write the live rows; the others stay zero
     dZq = (torch.empty_like if m_live == m else torch.zeros_like)(Zq)
     dZdb = (torch.empty_like if n_cols == n_db else torch.zeros_like)(Zdb)
-    sms = sm_count(Zq.device.index)
-    # pass A: the shard's rows against the database's columns; pass B the
-    # database's rows against the shard's rows as columns
-    n_chunks_a, chunk_a = column_chunks(n_cols, sms, d, backward=True, n_rows=m_live)
-    n_chunks_b, chunk_b = column_chunks(m_live, sms, d, backward=True, n_rows=n_cols)
-    part = torch.empty(((n_chunks_a * m_live + n_chunks_b * n_cols) * d,), dtype=torch.float64,
-                       device=Zq.device)
+    _, n_chunks, chunk, scratch = general_bwd_grid(m_live, n_cols, sm_count(Zq.device.index), d)
+    part = torch.empty((scratch,), dtype=torch.float64, device=Zq.device)
+    kernels = ctypes.c_int(0)
     rc = launch(
         fn, Zq, Zq.data_ptr(), Zdb.data_ptr(), row_lse.data_ptr(), g.data_ptr(),
         dZq.data_ptr(), dZdb.data_ptr(), part.data_ptr(), m_live, n_cols, row_offset, d,
-        n_chunks_a, chunk_a, n_chunks_b, chunk_b, int(kernel == "gaussian"),
+        n_chunks, chunk, int(kernel == "gaussian"), ctypes.byref(kernels),
     )
+    rowlse_bwd_general.kernel_launches += kernels.value
     if rc != 0:
         raise RuntimeError(f"rowlse_bwd_general launch failed: cudaError {rc}.")
     rowlse_bwd_general.launches += 1
@@ -400,3 +470,4 @@ rowlse_fwd.launches = 0
 rowlse_bwd.launches = 0
 rowlse_fwd_general.launches = 0
 rowlse_bwd_general.launches = 0
+rowlse_bwd_general.kernel_launches = 0

@@ -87,7 +87,8 @@ class _PairwiseLogkernelRowlseSharded(torch.autograd.Function):
     def forward(ctx, Z, mesh, kernel, exclude_diag, block_size):
         n = Z.shape[0]
         parts = [
-            rowlse_fwd_general(Zq, Zdb, off, n, kernel, exclude_diag, block_size).to(Z.device)
+            rowlse_fwd_general(Zq, Zdb, off, n, kernel, exclude_diag, block_size,
+                               shard_of_db=True).to(Z.device)
             for _, off, Zq, Zdb in _shards(Z, mesh)
         ]
         out = torch.cat(parts)[:n]
