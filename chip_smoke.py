@@ -71,11 +71,26 @@ Phases, in order; any failure exits non-zero:
    affinity equal to the one without the mesh; K1 once a step), each
    beside its fit without the mesh; where more than one card is visible,
    the t-SNE fit on a mesh of the real cards;
-10. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+10. engine: ``COSNE(random_state=0)`` on the 10,000 x 784 rows at its
+    defaults (inside the ball, 10-NN accuracy at least
+    COSNE_DEFAULT_MIN_ACC: its norm-matching term drives the points to the
+    ball's edge here, in the JAX package too; every launch counter 0), with
+    its steps' time and one forward-plus-backward of its O(n^2) row log-sum
+    timed alone, then with ``learning_rate_for_h_loss=0`` (accuracy at
+    least 0.9); parametric UMAP on the 60,000 rows
+    (``encoder=make_mlp_encoder(2, (256, 256))``, Adam at lr 1e-3; K1 once a
+    step; ``transform`` of the training rows equal to ``embedding_`` within
+    1e-5, and of 10,000 new rows from the same clusters, scored by their 10
+    nearest training rows); parametric t-SNE on the 10,000 rows with the
+    same encoder (K2 and K3 once a step); ``UMAP(random_state=0,
+    edge_schedule="bands")`` on the 60,000 rows (K1 once a step, its band
+    widths printed), each with 10-NN accuracy at least 0.9 and beside the
+    phase-4 fit of the same estimator;
+11. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-11. with ``--profile`` only: device time by kernel and the device's idle
+12. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
     and over 100 steps of each fit of phase 5 (torch.profiler).
 
@@ -86,6 +101,8 @@ phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
 runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone;
 with ``--spectral``, phase 8 alone; with ``--mesh`` it builds K1, K2 and K3
 and runs phase 9 alone (with the three fits without a mesh beside it). With
+``--engine`` it builds K1, K2 and K3 and runs phase 10 alone, with the
+UMAP and t-SNE fits of phase 4 beside it. With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -220,6 +237,25 @@ MESH_CASES = (
 # kNN blocks of other heights (another gram algorithm may round the last
 # bit), so the values are held to 1e-6 rather than bit for bit.
 MESH_AFFINITY_TOL = 1e-6
+
+# The engine phase. The parametric fits train the JAX package's MLP encoder
+# at hidden widths (256, 256) with Adam at lr 1e-3: the estimators' default
+# SGD at lr "auto" (n/4 and more) is a rate for the coordinates of a free
+# embedding, not for network weights
+ENCODER_HIDDEN = (256, 256)
+ENCODER_LR = 1e-3
+N_NEW = 10_000  # new rows that a parametric UMAP's transform embeds
+# COSNE at its defaults matches each point's hyperbolic distance to the
+# origin, squared, to its input's squared norm (~1.3e4 on these rows): that
+# term drives every point to the ball's float32 edge, and the 10-NN accuracy
+# there is 0.5495 in the JAX package and 0.5485 in the port on 2,000 of
+# these rows on the CPU (tests/_fit_quality.py; silhouette 0.0096 in both).
+# The defaults' fit is held to COSNE_DEFAULT_MIN_ACC; a second fit without
+# that term (learning_rate_for_h_loss=0: 1.0 in the JAX package on the same
+# 2,000 rows) is held to the 0.9 of every other fit
+COSNE_DEFAULT_MIN_ACC = 0.5
+TRANSFORM_TOL = 1e-5  # |transform(X) - embedding_| on the training rows
+
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
@@ -1251,6 +1287,174 @@ def run_ne_path(torch, counters, X, labels) -> list:
     return fits
 
 
+def new_rows(n: int, seed: int):
+    """n rows around the cluster centres of ``make_clustered(..., seed=SEED)``
+    (its first draw), their labels and noise drawn from ``seed``: rows of the
+    same clusters that no fit has seen."""
+    centers = np.random.default_rng(SEED).normal(scale=4.0, size=(N_CLUSTERS, D_IN))
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, N_CLUSTERS, n)
+    X = centers.astype(np.float32)[labels] + rng.standard_normal((n, D_IN), dtype=np.float32)
+    return X, labels
+
+
+def knn_transfer_accuracy(torch, Z_ref, y_ref, Z, y, k: int = 10, chunk: int = 2000) -> float:
+    """Share of the rows of Z whose k nearest rows of Z_ref carry their label
+    as the majority."""
+    hits = 0
+    for s in range(0, Z.shape[0], chunk):
+        nn = torch.topk(torch.cdist(Z[s:s + chunk], Z_ref), k, dim=1, largest=False).indices
+        votes = torch.nn.functional.one_hot(y_ref[nn], int(y_ref.max()) + 1).sum(1)
+        hits += int((votes.argmax(1) == y[s:s + chunk]).sum())
+    return hits / Z.shape[0]
+
+
+def hyperbolic_knn_accuracy(torch, Z, labels, n_sub: int = 10_000, k: int = 10) -> float:
+    """``knn_label_accuracy`` with neighbours by the Poincaré ball's distance
+    (arccosh is increasing, so its argument ranks them)."""
+    idx = subsample(torch, Z.shape[0], Z.device, n_sub, 0)
+    Zs, ys = Z[idx].double(), labels[idx]
+    sq = torch.cdist(Zs, Zs) ** 2
+    w = 1.0 - torch.sum(Zs * Zs, dim=1)
+    D = sq / (w[:, None] * w[None, :])
+    D.fill_diagonal_(float("inf"))
+    nn = torch.topk(D, k, dim=1, largest=False).indices
+    votes = torch.nn.functional.one_hot(ys[nn], int(labels.max()) + 1).sum(1)
+    return float((votes.argmax(1) == ys).float().mean())
+
+
+def time_cosne_step_parts(torch, model) -> dict:
+    """One forward-plus-backward of COSNE's O(n^2) row log-sum (its
+    repulsion), and one RiemannianAdam update, on the fitted embedding;
+    the row log-sum's peak memory above what was allocated before it."""
+    import math
+
+    from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse_autodiff
+    from torchdr_tpu_torch.utils.optim import make_optimizer
+
+    Z = model.embedding_.detach().clone()
+    gamma = float(model.gamma)
+
+    def rowlse(Zr):
+        return pairwise_logkernel_rowlse_autodiff(
+            Zr, lambda D: math.log(gamma) - torch.log(D + gamma**2), metric="sqhyperbolic",
+            exclude_diag=True, block_size=model.block_size)
+
+    def fwd():
+        with torch.no_grad():
+            torch.logsumexp(rowlse(Z), 0)
+
+    def fwd_bwd():
+        Zr = Z.requires_grad_(True)
+        torch.autograd.grad(torch.logsumexp(rowlse(Zr), 0), Zr)
+        Z.requires_grad_(False)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    opt = make_optimizer("RiemannianAdam")
+    state = opt.init(Z)
+    g = torch.randn_like(Z) * 1e-3
+    return {
+        "rowlse_fwd_ms": cuda_time_ms(fwd, reps=10),
+        "rowlse_fwd_bwd_ms": cuda_time_ms(fwd_bwd, reps=10),
+        "rowlse_peak_mem_gb": peak / 1e9,
+        "dense_n2_gb": Z.shape[0] ** 2 * 4 / 1e9,
+        "radam_update_ms": cuda_time_ms(lambda: opt.update(g, state, Z, 1.0, {}), reps=20),
+    }
+
+
+def ms_per_step(model) -> float:
+    return model.timings_["optimize"] / max(model.n_iter_, 1) * 1e3
+
+
+def run_engine_path(torch, counters, X, labels, single=None) -> dict:
+    """Phase 10: COSNE on the 10,000 rows at its defaults; parametric UMAP
+    on the 60,000 rows and parametric t-SNE on the 10,000 (the MLP encoder
+    at ENCODER_HIDDEN, Adam at ENCODER_LR); UMAP with the bands edge
+    schedule on the 60,000 rows; each beside phase 4's fit of the same
+    estimator (run here when ``single`` is None)."""
+    from torchdr_tpu_torch import COSNE, TSNE, UMAP
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.utils.encoders import make_mlp_encoder
+
+    X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    if single is None:
+        single = {
+            "UMAP": run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
+                            expect=("fused_shared_repulsion",)),
+            "TSNE": run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10,
+                            counters, expect=("rowlse_fwd", "rowlse_bwd")),
+        }
+    out = {}
+
+    for tag, params, min_acc in (("COSNE", {}, COSNE_DEFAULT_MIN_ACC),
+                                 ("COSNE h0", {"learning_rate_for_h_loss": 0.0}, 0.9)):
+        cosne = COSNE(random_state=0, device="auto", **params)
+        fit = run_fit(torch, cosne, X10, labels10, counters, expect=(), min_acc=min_acc)
+        max_norm = float(torch.linalg.vector_norm(cosne.embedding_, dim=1).max())
+        fit.update(params=params, min_acc=min_acc, max_norm=max_norm,
+                   ms_per_step=ms_per_step(cosne),
+                   knn10_label_acc_hyperbolic=hyperbolic_knn_accuracy(
+                       torch, cosne.embedding_, torch.from_numpy(labels10).cuda()))
+        if not params:
+            fit.update(time_cosne_step_parts(torch, cosne))
+        print(f"engine {tag} " + json.dumps(fit), flush=True)
+        if not max_norm < 1.0:
+            raise AssertionError(f"{tag}: a point left the ball (max norm {max_norm})")
+        out[tag] = fit
+
+    def parametric(cls, data, y, expect):
+        model = cls(random_state=0, device="auto", encoder=make_mlp_encoder(2, ENCODER_HIDDEN),
+                    optimizer="Adam", lr=ENCODER_LR)
+        fit = run_fit(torch, model, data, y, counters, expect=expect)
+        Xt = torch.from_numpy(data).cuda()
+        err = float((model.transform(Xt) - model.embedding_).abs().max())
+        fit.update(ms_per_step=ms_per_step(model), transform_err=err,
+                   n_weights=sum(v.numel() for v in model.encoder_variables_.values()))
+        if not err <= TRANSFORM_TOL:
+            raise AssertionError(f"parametric {cls.__name__}: transform of the training rows "
+                                 f"is {err} from embedding_ (> {TRANSFORM_TOL})")
+        return model, fit
+
+    pumap, fit = parametric(UMAP, X, labels, ("fused_shared_repulsion",))
+    Xn, yn = new_rows(N_NEW, SEED + 1)
+    Xn = torch.from_numpy(Xn).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Zn = pumap.transform(Xn)
+    torch.cuda.synchronize()
+    fit.update(new_rows=N_NEW, transform_new_ms=(time.perf_counter() - t0) * 1e3,
+               new_rows_knn10_acc=knn_transfer_accuracy(
+                   torch, pumap.embedding_, torch.from_numpy(labels).cuda(), Zn,
+                   torch.from_numpy(yn).cuda()))
+    print("engine parametric UMAP " + json.dumps(fit), flush=True)
+    out["parametric UMAP"] = fit
+
+    _, fit = parametric(TSNE, X10, labels10, ("rowlse_fwd", "rowlse_bwd"))
+    print("engine parametric TSNE " + json.dumps(fit), flush=True)
+    out["parametric TSNE"] = fit
+
+    bands = UMAP(random_state=0, device="auto", edge_schedule="bands")
+    fit = run_fit(torch, bands, X, labels, counters, expect=("fused_shared_repulsion",))
+    fit.update(ms_per_step=ms_per_step(bands), band_widths=list(bands.band_widths_))
+    print("engine bands UMAP " + json.dumps(fit), flush=True)
+    out["bands UMAP"] = fit
+
+    for name, base in (("UMAP", "parametric UMAP"), ("UMAP", "bands UMAP"),
+                       ("TSNE", "parametric TSNE")):
+        ref = single[name]
+        print(f"engine {base} beside {name}: wall {out[base]['wall_s']:.3f} s "
+              f"({ref['wall_s']:.3f}), optimize {out[base]['phases_s']['optimize']:.3f} s "
+              f"({ref['phases_s']['optimize']:.3f}), steps {out[base]['steps']} "
+              f"({ref['steps']}), launches {json.dumps(out[base]['launches'])} "
+              f"({json.dumps(ref['launches'])})", flush=True)
+    return out
+
+
 def median_sq_distance(torch, X, rows: int = 2000, seed: int = SEED, device="cuda") -> float:
     """Median squared distance between ``rows`` seeded rows of X."""
     g = torch.Generator()
@@ -1521,6 +1725,24 @@ def profile_optimize(torch, model_cls, X, steps: int = 200, top: int = 8,
     }
 
 
+def profile_engine(torch, X) -> None:
+    """``profile_optimize`` over 100 steps of COSNE on the 10,000 rows and of
+    the parametric UMAP on X."""
+    from torchdr_tpu_torch import COSNE, UMAP
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.utils.encoders import make_mlp_encoder
+
+    X10, _ = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    for model_cls, data, params in (
+        (COSNE, X10, {}),
+        (UMAP, X, {"encoder": make_mlp_encoder(2, ENCODER_HIDDEN), "optimizer": "Adam",
+                   "lr": ENCODER_LR}),
+    ):
+        prof = profile_optimize(torch, model_cls, data, 100, **params)
+        prof["encoder"] = "encoder" in params
+        print("profile " + json.dumps(prof), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1560,12 +1782,13 @@ def main() -> int:
     spectral_only = "--spectral" in sys.argv[1:]
     mesh_only = "--mesh" in sys.argv[1:]
     rowlse_only = "--rowlse" in sys.argv[1:]
+    engine_only = "--engine" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
     elif rowlse_only:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
-    elif mesh_only:
+    elif mesh_only or engine_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
@@ -1595,6 +1818,12 @@ def main() -> int:
         return 0
     if mesh_only:
         run_mesh_path(torch, counters, X, labels)
+        print(smi, flush=True)
+        return 0
+    if engine_only:
+        run_engine_path(torch, counters, X, labels)
+        if "--profile" in sys.argv[1:]:
+            profile_engine(torch, X)
         print(smi, flush=True)
         return 0
 
@@ -1645,6 +1874,9 @@ def main() -> int:
                             single={"UMAP": umap, "TSNE": tsne, "SNE": sne})
     k2["general"], k3["general"] = general["K2"], general["K3"]
 
+    # 10. the engine: COSNE, parametric UMAP and t-SNE, UMAP's bands schedule
+    run_engine_path(torch, counters, X, labels, single={"UMAP": umap, "TSNE": tsne})
+
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn
 
@@ -1655,6 +1887,7 @@ def main() -> int:
         ):
             prof = profile_optimize(torch, model_cls, data, steps, **params)
             print("profile " + json.dumps(prof), flush=True)
+        profile_engine(torch, X)
 
     print(json.dumps({"kernels": [k1, k2, k3, *gathers]}), flush=True)
     print(smi, flush=True)

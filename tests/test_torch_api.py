@@ -1,6 +1,6 @@
 """The port's public surface against the JAX package's: ``PCA.transform``
-of new rows, the options ``AffinityMatcher`` takes and refuses, and
-``Affinity.clear_memory``.
+of new rows, the options ``AffinityMatcher`` takes (with their defaults,
+and other values) and refuses, and ``Affinity.clear_memory``.
 
 The same numpy inputs, made from a seed, go through both packages; the port
 runs with ``device="cpu"``.
@@ -16,7 +16,14 @@ from _torch_threads import warm_worker_threads  # noqa: F401
 from torchdr_tpu import AffinityMatcher as JaxAffinityMatcher
 from torchdr_tpu import PCA as JaxPCA
 from torchdr_tpu import UMAPAffinity as JaxUMAPAffinity
-from torchdr_tpu_torch import PCA, TSNE, AffinityMatcher, EntropicAffinity, UMAPAffinity
+from torchdr_tpu_torch import (
+    PCA,
+    TSNE,
+    AffinityMatcher,
+    NormalizedGaussianAffinity,
+    NormalizedStudentAffinity,
+    UMAPAffinity,
+)
 
 
 def _blobs(n, d, seed):
@@ -54,15 +61,16 @@ def test_pca_transform_before_fit_raises():
         PCA(device="cpu").transform(np.zeros((3, 4), np.float32))
 
 
-# The options of the JAX package's AffinityMatcher that wait for ROADMAP
-# item 21, each with a value other than its default.
-_NOT_PORTED = {
-    "affinity_out": EntropicAffinity(device="cpu"),
-    "kwargs_affinity_out": {"perplexity": 5},
+# The options of the JAX package's AffinityMatcher beyond the estimators'
+# own (the generic loss, encoders, bounded dispatches), each with a value
+# other than its default.
+_OPTIONS = {
+    "affinity_out": NormalizedStudentAffinity(device="cpu"),
+    "kwargs_affinity_out": {"log": True},
     "loss_fn": "cross_entropy_loss",
     "kwargs_loss": {"log": True},
     "encoder": torch.nn.Linear(4, 2),
-    "max_iters_per_dispatch": 100,
+    "max_iters_per_dispatch": 2,
 }
 
 
@@ -71,27 +79,35 @@ def test_affinity_matcher_takes_the_jax_options_with_their_defaults():
     parameters of the port's constructor (not swallowed by ``**kwargs``)."""
     port = inspect.signature(AffinityMatcher.__init__).parameters
     ref = inspect.signature(JaxAffinityMatcher.__init__).parameters
-    for name in _NOT_PORTED:
+    for name in _OPTIONS:
         assert name in port, name
         assert port[name].default == ref[name].default, name
     m = AffinityMatcher(UMAPAffinity(device="cpu"), device="cpu")
-    for name in _NOT_PORTED:
+    for name in _OPTIONS:
         assert getattr(m, name) == ref[name].default
 
 
-@pytest.mark.parametrize("option", sorted(_NOT_PORTED))
+@pytest.mark.parametrize("option", sorted(_OPTIONS))
 def test_affinity_matcher_refuses_an_unported_option(option):
-    """A value other than the default raises ``NotImplementedError`` naming
-    the item, from the matcher and from an estimator built on it."""
-    with pytest.raises(NotImplementedError, match="item 21"):
-        AffinityMatcher(UMAPAffinity(device="cpu"), device="cpu", **{option: _NOT_PORTED[option]})
-    with pytest.raises(NotImplementedError, match=option):
-        TSNE(device="cpu", **{option: _NOT_PORTED[option]})
+    """Each option, refused before its port, is taken: the matcher (the
+    generic cross-entropy between a Gaussian P and the Student affinity of
+    Z) fits five steps with it, and an estimator built on the matcher keeps
+    it."""
+    X = _blobs(30, 4, 2)
+    kw = {"affinity_out": NormalizedStudentAffinity(device="cpu"),
+          "loss_fn": "cross_entropy_loss", option: _OPTIONS[option]}
+    m = AffinityMatcher(NormalizedGaussianAffinity(device="cpu"), max_iter=5, random_state=0,
+                        device="cpu", **kw)
+    Z = m.fit_transform(X)
+    assert getattr(m, option) is _OPTIONS[option]
+    assert Z.shape == (30, 2) and np.isfinite(Z).all() and m.n_iter_ == 5
+    assert getattr(TSNE(device="cpu", **{option: _OPTIONS[option]}), option) is _OPTIONS[option]
 
 
 def test_affinity_matcher_precomputed_is_not_ported_and_unknown_loss_is_refused():
-    with pytest.raises(NotImplementedError, match='precomputed".*item 21'):
-        AffinityMatcher("precomputed", device="cpu")
+    """``"precomputed"`` is taken now; any other string, and an unknown
+    loss, are refused as the JAX package refuses them."""
+    assert AffinityMatcher("precomputed", device="cpu").affinity_in == "precomputed"
     with pytest.raises(ValueError, match="Affinity instance"):
         AffinityMatcher("umap", device="cpu")
     # the JAX package's own check of the name comes first

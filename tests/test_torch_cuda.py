@@ -1071,3 +1071,110 @@ def test_eval_on_the_card_equals_the_cpu(cuda):
         teval.silhouette_score(X, y, device="cpu"), abs=1e-5)
     ari, pred = teval.kmeans_ari(X, y, random_state=0, device=cuda.type)
     assert np.isfinite(ari) and pred.shape == (500,)
+
+
+# --- the optimization engine: encoders, bands, COSNE, root search ---
+
+
+def _engine_data(n=1500, d=16, seed=3):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=8.0, size=(4, d))
+    labels = rng.integers(0, 4, n)
+    return (centers[labels] + rng.normal(size=(n, d))).astype(np.float32), labels
+
+
+def _zero_counters():
+    counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
+                rowlse_bwd_general)
+    for fn in counters:
+        fn.launches = 0
+    return counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["UMAP", "TSNE"])
+def test_parametric_fit_on_the_card_launches_its_kernels_every_step(cuda, model):
+    """With ``encoder=`` the weights live on the card, the encoder runs there,
+    and the estimator's kernels launch once a step: K1 for UMAP, K2 and K3
+    for t-SNE (the chain rule through the encoder)."""
+    from torchdr_tpu_torch.utils.encoders import make_mlp_encoder
+
+    X, _ = _engine_data()
+    _zero_counters()
+    cls = UMAP if model == "UMAP" else TSNE
+    est = cls(max_iter=40, random_state=0, optimizer="Adam", lr=1e-3,
+              encoder=make_mlp_encoder(2, (32,)))
+    Z = est.fit_transform(X)
+    assert Z.shape == (1500, 2) and np.all(np.isfinite(Z)) and est.n_iter_ == 40
+    if model == "UMAP":
+        assert fused_shared_repulsion.launches == 40
+        assert rowlse_fwd.launches == rowlse_bwd.launches == 0
+    else:
+        assert rowlse_fwd.launches == rowlse_bwd.launches == 40
+        assert fused_shared_repulsion.launches == 0
+    assert all(v.device.type == "cuda" for v in est.encoder_variables_.values())
+    Zt = est.transform(torch.from_numpy(X[:100]).to(cuda))
+    assert Zt.device.type == "cuda"
+    assert float((Zt.cpu() - torch.from_numpy(Z[:100])).abs().max()) <= 1e-5
+    assert isinstance(est.transform(X[:10]), np.ndarray)
+
+
+@pytest.mark.cuda
+def test_bands_fit_on_the_card_launches_k1_every_step(cuda):
+    X, _ = _engine_data(seed=4)
+    _zero_counters()
+    est = UMAP(n_neighbors=15, max_iter=70, random_state=0, edge_schedule="bands")
+    Z = est.fit_transform(X)
+    assert fused_shared_repulsion.launches == est.n_iter_ == 70
+    assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
+    widths = est.band_widths_  # prefix widths, the last the graph's full width
+    assert len(widths) == 7 and list(widths) == sorted(widths) and widths[0] >= 8
+
+
+@pytest.mark.cuda
+def test_cosne_on_the_card_stays_in_the_ball_and_launches_no_kernel(cuda):
+    from torchdr_tpu_torch import COSNE
+
+    X, _ = _engine_data(n=600, seed=5)
+    counters = _zero_counters()
+    Z = COSNE(perplexity=20, max_iter=60, random_state=0, block_size=256).fit_transform(X)
+    assert Z.shape == (600, 2) and np.all(np.isfinite(Z))
+    assert float(np.linalg.norm(Z, axis=1).max()) < 1.0
+    assert all(fn.launches == 0 for fn in counters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude_diag", [True, False])
+def test_autodiff_rowlse_on_the_card_matches_the_cpu(cuda, exclude_diag):
+    """The blockwise autodiff row log-sum on the card against the CPU in
+    float64, value and gradient, at n not a multiple of the block."""
+    import math
+
+    from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse_autodiff
+
+    rng = np.random.default_rng(6)
+    Z = rng.normal(size=(1003, 2)) * 0.2
+
+    def run(Zt):
+        Zt = Zt.clone().requires_grad_(True)
+        lse = pairwise_logkernel_rowlse_autodiff(
+            Zt, lambda D: math.log(2.0) - torch.log(D + 4.0), metric="sqhyperbolic",
+            exclude_diag=exclude_diag, block_size=256)
+        (g,) = torch.autograd.grad(torch.logsumexp(lse, 0), Zt)
+        return lse.detach().cpu().double(), g.cpu().double()
+
+    got, got_g = run(torch.from_numpy(Z.astype(np.float32)).to(cuda))
+    want, want_g = run(torch.from_numpy(Z))
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert float((got_g - want_g).abs().max()) <= 1e-4 * float(want_g.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["binary_search", "false_position"])
+def test_root_search_with_scalar_bounds_runs_on_the_card(cuda, name):
+    from torchdr_tpu_torch.ops import root_search
+
+    target = torch.linspace(0.5, 4.0, 33, device=cuda)
+    root = getattr(root_search, name)(lambda x: torch.log(x) - torch.log(target), 33)
+    assert root.device.type == "cuda"
+    assert float((root - target).abs().max()) <= 1e-4

@@ -199,8 +199,8 @@ def test_binary_search_sync_interval_is_bit_identical():
     def f(x):
         return torch.log(x) - torch.log(target)
 
-    every = binary_search(f, 257, sync_every=1)
-    sparse = binary_search(f, 257, sync_every=8)
+    every = binary_search(f, 257, sync_every=1, device="cpu")
+    sparse = binary_search(f, 257, sync_every=8, device="cpu")
     assert torch.equal(every, sparse)
     np.testing.assert_allclose(every.numpy(), target.numpy(), rtol=1e-5)
 

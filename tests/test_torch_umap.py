@@ -460,9 +460,13 @@ def test_device_auto_without_cuda_raises():
 
 
 def test_bands_schedule_is_not_ported_yet():
+    """The bands schedule, refused before its port, fits (its parity with the
+    JAX package is in tests/test_torch_bands.py)."""
     X, _ = _blobs(n=100, seed=8)
-    with pytest.raises(NotImplementedError, match="bands"):
-        UMAP(n_neighbors=10, max_iter=5, device="cpu", edge_schedule="bands").fit_transform(X)
+    model = UMAP(n_neighbors=10, max_iter=5, device="cpu", edge_schedule="bands")
+    Z = model.fit_transform(X)
+    assert Z.shape == (100, 2) and np.isfinite(Z).all() and model.n_iter_ == 5
+    assert len(model.band_widths_) == 7
 
 
 @pytest.mark.parametrize("sched, groups", [
@@ -495,9 +499,10 @@ def test_edge_groups_warning_with_the_exact_schedule():
 
 
 def test_edge_groups_warning_comes_before_bands_is_refused():
+    """edge_groups with the bands schedule warns, and bands is taken."""
     with pytest.warns(UserWarning, match="ignored with edge_schedule='bands'"):
-        with pytest.raises(NotImplementedError, match="bands"):
-            UMAP(edge_groups=2, edge_schedule="bands", device="cpu")._edge_schedule_for(10)
+        assert UMAP(edge_groups=2, edge_schedule="bands",
+                    device="cpu")._edge_schedule_for(10) == "bands"
 
 
 def _imported_modules(path):
@@ -519,7 +524,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models/spectral/kernel_pca.py", "models/spectral/incremental_pca.py",
                 "models/spectral/phate.py", "eval/__init__.py", "eval/knn_metrics.py",
                 "eval/silhouette.py", "eval/kmeans_ari.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/knn.py", "parallel/sparse.py", "parallel/ivf.py"):
+                "parallel/mesh.py", "parallel/knn.py", "parallel/sparse.py", "parallel/ivf.py",
+                "utils/manifold.py", "utils/encoders.py", "models/neighbor/cosne.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:
@@ -529,10 +535,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 # Names of the JAX package's ``__all__`` that wait for a ROADMAP item: 12c
-# (PQ), 13 (loader, streaming, batch-streamed builds), 16 (COSNE), 21
-# (false_position, square_loss of the generic loss).
+# (PQ), 13 (loader, streaming, batch-streamed builds).
 _WAITING = {
-    "COSNE": 16, "false_position": 21, "square_loss": 21,
     "PQCodebook": "12c", "pq_train": "12c", "pq_encode": "12c", "pq_search": "12c",
     "pq_knn": "12c", "BatchSource": 13, "get_loader_metadata": 13,
     "validate_deterministic_loader": 13, "knn_graph_from_batches": 13,

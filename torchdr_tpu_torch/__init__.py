@@ -48,7 +48,16 @@ from .eval import (  # noqa: E402
     silhouette_samples,
     silhouette_score,
 )
-from .models.neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn  # noqa: E402
+from .models.neighbor import (  # noqa: E402
+    COSNE,
+    PACMAP,
+    SNE,
+    TSNE,
+    UMAP,
+    InfoTSNE,
+    LargeVis,
+    TSNEkhorn,
+)
 from .models.neighbor.base import (  # noqa: E402
     NegativeSamplingNeighborEmbedding,
     NeighborEmbedding,
@@ -69,7 +78,7 @@ from .ops.distance import (  # noqa: E402
 from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
 from .ops.kmeans import kmeans_fit  # noqa: E402
 from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
-from .ops.root_search import binary_search  # noqa: E402
+from .ops.root_search import binary_search, false_position  # noqa: E402
 
 __all__ = [
     "Affinity",
@@ -81,6 +90,7 @@ __all__ = [
     "NeighborEmbedding",
     "NegativeSamplingNeighborEmbedding",
     "binary_search",
+    "false_position",
     "SNE",
     "TSNE",
     "UMAP",
@@ -88,6 +98,7 @@ __all__ = [
     "InfoTSNE",
     "TSNEkhorn",
     "PACMAP",
+    "COSNE",
     "PCA",
     "IncrementalPCA",
     "ExactIncrementalPCA",

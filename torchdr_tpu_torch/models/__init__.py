@@ -1,9 +1,9 @@
 """Estimators."""
 
-from .neighbor import PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn
+from .neighbor import COSNE, PACMAP, SNE, TSNE, UMAP, InfoTSNE, LargeVis, TSNEkhorn
 from .spectral import PCA, PHATE, ExactIncrementalPCA, IncrementalPCA, KernelPCA
 
 __all__ = [
-    "SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP",
+    "SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP", "COSNE",
     "PCA", "IncrementalPCA", "ExactIncrementalPCA", "KernelPCA", "PHATE",
 ]

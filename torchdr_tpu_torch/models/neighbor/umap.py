@@ -8,8 +8,12 @@ repulsion draws one shared negative sample per step and, for embedding
 widths up to 8, goes through K1 (``ops/cuda/umap_kernel.py``): the Hopper
 kernel on a CUDA tensor, its plain version on a CPU tensor.
 
-The ``groups`` and ``exact`` edge schedules are ported; ``bands`` waits
-for a later slice.
+Edge schedules: ``exact`` visits every edge every step; ``groups`` deals
+the columns round-robin into G groups and visits group t % G at step t;
+``bands`` (opt-in) sorts each row's edges by fire period and visits at
+step t the row prefix that holds every power-of-two band b with
+t % 2^b == 0. The prefix widths are host integers, so a step slices a
+rectangle of the edge arrays; the repulsion is K1 in every schedule.
 """
 
 from __future__ import annotations
@@ -187,7 +191,7 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         if self.edge_schedule not in ("bands", "groups", "exact"):
             raise ValueError(
                 f"[TorchDR-Torch] ERROR : unknown edge_schedule "
-                f"'{self.edge_schedule}' (groups | exact | auto)."
+                f"'{self.edge_schedule}' (bands | groups | exact | auto)."
             )
         if self.edge_schedule != "groups" and self.edge_groups != "auto":
             warnings.warn(
@@ -196,11 +200,6 @@ class UMAP(NegativeSamplingNeighborEmbedding):
                 f"apply to the 'groups' schedule).",
                 UserWarning,
                 stacklevel=2,
-            )
-        if self.edge_schedule == "bands":
-            raise NotImplementedError(
-                "[TorchDR-Torch] ERROR : edge_schedule='bands' is not ported yet "
-                "(use 'groups' or 'exact')."
             )
         return self.edge_schedule
 
@@ -213,6 +212,56 @@ class UMAP(NegativeSamplingNeighborEmbedding):
             return 512
         return super()._shared_negative_count(n)
 
+    #: number of power-of-two bands; the weakest band is visited every
+    #: 2^(N_BANDS-1) = 64 steps
+    _N_BANDS = 7
+
+    def _band_consts(self, consts, P, NN):
+        """The bands schedule's state: each row's edges sorted by fire period
+        (stable), the prefix width of each band and each column's visit
+        period 2^z_first(col), z_first(col) the first band whose prefix
+        holds the column."""
+        A_max = torch.max(P)
+        small = P <= A_max / self.max_iter  # also covers the -1 pads (P == 0)
+        eps = torch.where(small, torch.full_like(P, float("inf")), A_max / (P + 1e-3))
+        order = torch.argsort(eps, dim=1, stable=True)
+        eps = torch.gather(eps, 1, order)
+        consts["P"] = torch.gather(P, 1, order)
+        # gather-safe indices: dead/pad edges (eps=inf -> c=0) add nothing
+        consts["NN"] = torch.clamp(torch.gather(NN, 1, order), min=0)
+        consts["epochs_per_sample"] = eps
+        band = torch.clamp(torch.floor(torch.log2(torch.clamp(eps, min=1.0))), 0, self._N_BANDS - 1)
+        band = torch.where(torch.isfinite(eps), band, torch.full_like(band, self._N_BANDS - 1))
+        W_full = P.shape[1]
+        # 0.98-quantiles of the rows' band counts, not their maximum: one
+        # hub row would otherwise widen every prefix to the full width. A
+        # row past the quantile has its edges beyond a prefix visited with a
+        # deeper band, and the catch-up burst keeps the total impulse exact.
+        widths = []
+        for z in range(self._N_BANDS):
+            counts = torch.sum(band <= z, dim=1).to(torch.float32)
+            w = int(torch.quantile(counts, 0.98))
+            w = min(W_full, max(8, -(-w // 8) * 8))
+            if widths:
+                w = max(w, widths[-1])
+            widths.append(w)
+        widths[-1] = W_full  # every edge rides the last prefix
+        consts["band_widths"] = tuple(widths)
+        self.band_widths_ = tuple(widths)
+        zf = np.full(W_full, self._N_BANDS - 1)
+        for z in reversed(range(self._N_BANDS)):
+            zf = np.where(np.arange(W_full) < widths[z], z, zf)
+        consts["band_period"] = torch.from_numpy((2.0**zf)[None, :].astype(np.float32)).to(P.device)
+        consts["edge_groups_G"] = 1
+        consts["edge_group_width"] = 1  # active_edges carries row sums
+        exp_w = sum(widths[z] * 2.0 ** -(z + 1) for z in range(self._N_BANDS - 1))
+        exp_w += widths[-1] * 2.0 ** -(self._N_BANDS - 1)
+        self.logger.info(
+            f"Band schedule widths {list(widths)} "
+            f"(expected gather width/step {exp_w:.1f} of {W_full})."
+        )
+        return consts
+
     def _build_consts(self, X):
         consts = super()._build_consts(X)
         P = self.affinity_in_
@@ -220,6 +269,8 @@ class UMAP(NegativeSamplingNeighborEmbedding):
 
         sched = self._edge_schedule_for(P.shape[0])
         consts["edge_schedule"] = sched
+        if sched == "bands":
+            return self._band_consts(consts, P, NN)
         G = self._edge_groups_for(P.shape[0]) if sched == "groups" else 1
         consts["edge_groups_G"] = G
         W = P.shape[1]
@@ -260,13 +311,15 @@ class UMAP(NegativeSamplingNeighborEmbedding):
 
     # --- closed-form gradients ---
 
-    def _attr_core(self, Z, NN, eps, period: float, it: int):
+    def _attr_core(self, Z, NN, eps, period, it: int):
         """Closed-form attraction over one (n, W) edge slice.
 
         Returns (grad, per-edge fire counts c). The catch-up burst at step
         ``it`` is the number of fire events k·eps in (now−period, now]:
-        floor(now/eps) − floor(max(now−period, 0)/eps). Dead/pad edges carry
-        eps=inf, so now/inf = 0 gives c = 0 with no masking.
+        floor(now/eps) − floor(max(now−period, 0)/eps). ``period`` is the
+        slice's visit period: a float, or a (1, W) tensor of per-column
+        periods (the bands schedule). Dead/pad edges carry eps=inf, so
+        now/inf = 0 gives c = 0 with no masking.
         """
         diff = Z[:, None, :] - Z[NN]
         D = torch.sum(diff * diff, dim=-1)
@@ -275,13 +328,32 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         coef = torch.where(D > 0, coef, torch.zeros_like(coef))
 
         now = float(it + 1)
-        prev = max(now - period, 0.0)
-        c = torch.floor(_div(now, eps)) - torch.floor(_div(prev, eps))
+        if isinstance(period, torch.Tensor):
+            prev = torch.clamp(now - period, min=0.0)
+            c = torch.floor(_div(now, eps)) - torch.floor(prev / eps)
+        else:
+            c = torch.floor(_div(now, eps)) - torch.floor(_div(max(now - period, 0.0), eps))
         coef = coef * c
         grad = torch.clamp(torch.sum(diff * coef[:, :, None], dim=1), -4.0, 4.0)
         return grad, c
 
+    def _attractive_gradients_bands(self, Z, consts, carry, it):
+        """Step ``it`` visits the row prefix of width
+        band_widths[trailing_zeros(it)] (step 0 the last band's): every band
+        b with it % 2^b == 0. A column is visited on a fixed period, its
+        first band's, so _attr_core's burst count applies."""
+        widths = consts["band_widths"]
+        tz = (it & -it).bit_length() - 1 if it > 0 else len(widths) - 1
+        W = widths[min(tz, len(widths) - 1)]
+        grad, c = self._attr_core(
+            Z, consts["NN"][:, :W], consts["epochs_per_sample"][:, :W],
+            consts["band_period"][:, :W], it,
+        )
+        return grad, dict(carry, active_edges=torch.sum(c, dim=1, keepdim=True))
+
     def _attractive_gradients(self, Z, consts, carry, it):
+        if consts["edge_schedule"] == "bands":
+            return self._attractive_gradients_bands(Z, consts, carry, it)
         G = consts["edge_groups_G"]
         if G > 1:
             g = it % G

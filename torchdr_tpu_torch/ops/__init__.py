@@ -19,10 +19,11 @@ from .reductions import (
     kmin,
     logsumexp_red,
     matrix_power,
+    square_loss,
     sum_red,
     svd_flip,
 )
-from .root_search import binary_search, init_bounds
+from .root_search import binary_search, false_position, init_bounds
 from .sparse import sparse_to_dense, symmetrize_sparse
 
 __all__ = [
@@ -32,7 +33,7 @@ __all__ = [
     "LIST_METRICS", "pairwise_block",
     "pairwise_logkernel_logsumexp", "pairwise_logkernel_rowlse",
     "center_kernel", "cross_entropy_loss", "entropy", "kmax", "kmin",
-    "logsumexp_red", "matrix_power", "sum_red", "svd_flip",
-    "binary_search", "init_bounds",
+    "logsumexp_red", "matrix_power", "square_loss", "sum_red", "svd_flip",
+    "binary_search", "false_position", "init_bounds",
     "sparse_to_dense", "symmetrize_sparse",
 ]

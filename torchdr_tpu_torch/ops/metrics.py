@@ -57,7 +57,14 @@ def pairwise_block(
     if metric == "euclidean":
         return torch.sqrt(sq)
     denom = (1.0 - x_norm)[:, None] * (1.0 - y_norm)[None, :]
-    return torch.acosh(torch.clamp(1.0 + 2.0 * (sq / denom), min=1.0 + 1e-7)) ** 2
+    return acosh_above_one(1.0 + 2.0 * (sq / denom)) ** 2
+
+
+def acosh_above_one(x: torch.Tensor) -> torch.Tensor:
+    """arccosh(max(x, 1 + 1e-7)): finite at zero distance (arccosh'(1) = ∞)
+    with no gradient below the floor; ``torch.maximum`` splits the gradient
+    at a tie, as the JAX package's ``jnp.maximum`` does."""
+    return torch.acosh(torch.maximum(x, x.new_full((), 1.0 + 1e-7)))
 
 
 def indexed_block(Xq: torch.Tensor, Yk: torch.Tensor, metric: str = "sqeuclidean") -> torch.Tensor:
@@ -76,7 +83,4 @@ def indexed_block(Xq: torch.Tensor, Yk: torch.Tensor, metric: str = "sqeuclidean
     x_norm = torch.sum(Xq * Xq, dim=-1)[:, None]
     y_norm = torch.sum(Yk * Yk, dim=-1)
     denom = (1.0 - x_norm) * (1.0 - y_norm)
-    return (
-        torch.acosh(torch.clamp(1.0 + 2.0 * (torch.clamp(sq, min=0.0) / denom), min=1.0 + 1e-7))
-        ** 2
-    )
+    return acosh_above_one(1.0 + 2.0 * (torch.clamp(sq, min=0.0) / denom)) ** 2

@@ -16,13 +16,20 @@ blockwise XLA tier.
 mesh (``parallel/mesh.Mesh``): each shard's device runs the general K2 on
 its row chunk against the whole Z, and in the backward the general K3,
 whose two outputs form that shard's (n, d) contribution; the contributions
-are summed on Z's device in rank order (the JAX package's psum). The
-autodiff variant for arbitrary kernels (COSNE's) waits for the COSNE slice.
+are summed on Z's device in rank order (the JAX package's psum).
+
+:func:`pairwise_logkernel_rowlse_autodiff` is the row log-sum for any
+metric and any log-kernel (COSNE's hyperbolic Cauchy kernel): torch
+operations over (block × n) tiles, each under
+``torch.utils.checkpoint``, so that the backward recomputes a tile rather
+than storing it and both passes hold O(block · n) memory. The JAX package
+computes it in XLA too (``jax.checkpoint`` per tile).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import pad_to_multiple, replicate
 from .cuda.reduce_kernel import (
@@ -32,12 +39,14 @@ from .cuda.reduce_kernel import (
     rowlse_fwd,
     rowlse_fwd_general,
 )
+from .metrics import pairwise_block
 
 __all__ = [
     "KERNELS",
     "pairwise_logkernel_rowlse",
     "pairwise_logkernel_rowlse_sharded",
     "pairwise_logkernel_logsumexp",
+    "pairwise_logkernel_rowlse_autodiff",
 ]
 
 
@@ -141,3 +150,42 @@ def pairwise_logkernel_rowlse_sharded(
 def pairwise_logkernel_logsumexp(Z, kernel="student", exclude_diag=True, block_size=1024):
     """Global log Σ_ij k(‖z_i − z_j‖²) — t-SNE's exact repulsion term."""
     return torch.logsumexp(pairwise_logkernel_rowlse(Z, kernel, exclude_diag, block_size), dim=0)
+
+
+def pairwise_logkernel_rowlse_autodiff(
+    Z: torch.Tensor,
+    log_kernel_fn,
+    metric: str = "sqhyperbolic",
+    exclude_diag: bool = True,
+    block_size: int = 1024,
+) -> torch.Tensor:
+    """Row-wise logsumexp of ``log_kernel_fn(D)`` over the pairwise distances
+    D of ``metric``, without forming n×n, differentiable by autograd.
+
+    The rows go in blocks of ``min(block_size, max(8, n))``, the last padded
+    with zero rows that are masked, as is the diagonal with
+    ``exclude_diag``. Each (block × n) tile runs under a non-reentrant
+    checkpoint: its forward saves nothing, and the backward recomputes it.
+    ``log_kernel_fn`` maps a distance tile to the log-kernel elementwise
+    (e.g. ``lambda D: math.log(g) - torch.log(D + g**2)``).
+    """
+    n = Z.shape[0]
+    block = min(block_size, max(8, n))
+    pad = (-n) % block
+    Zp = torch.cat([Z, Z.new_zeros((pad, Z.shape[1]))]) if pad else Z
+    base = torch.arange(block, device=Z.device)
+    cols = torch.arange(n, device=Z.device)
+
+    def tile(Zp, Z, start):
+        rows = start + base
+        logq = log_kernel_fn(pairwise_block(Zp[start : start + block], Z, metric))
+        invalid = rows[:, None] >= n
+        if exclude_diag:
+            invalid = invalid | (rows[:, None] == cols[None, :])
+        return torch.logsumexp(logq.masked_fill(invalid, float("-inf")), dim=1)
+
+    out = [
+        checkpoint(tile, Zp, Z, start, use_reentrant=False, preserve_rng_state=False)
+        for start in range(0, Zp.shape[0], block)
+    ]
+    return torch.cat(out)[:n]

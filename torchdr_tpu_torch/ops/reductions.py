@@ -1,7 +1,7 @@
 """Losses, reductions and small linear-algebra helpers.
 
 Counterpart of the parts of ``torchdr_tpu/ops/reductions.py`` that the
-ported paths reach: the cross-entropy loss, the row entropy, the
+ported paths reach: the cross-entropy and square losses, the row entropy, the
 (masked) logsumexp and sum reductions, the SVD sign convention and
 k-smallest/largest selection. The O(n²) streaming reductions live in
 ``ops/reduce.py``.
@@ -21,6 +21,11 @@ def cross_entropy_loss(P: torch.Tensor, Q: torch.Tensor, log: bool = False) -> t
     if log:
         return -torch.sum(P * Q)
     return -torch.sum(P * torch.log(Q))
+
+
+def square_loss(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """sum((P - Q)²)."""
+    return torch.sum((P - Q) ** 2)
 
 
 def entropy(P: torch.Tensor, log: bool = True, dim: int = 1) -> torch.Tensor:

@@ -10,6 +10,10 @@ therefore test the stop condition only every ``sync_every`` iterations:
 the result is bit-identical to testing every iteration, with one sync per
 ``sync_every`` iterations.
 
+The brackets live on the device of a tensor bound when one is given;
+otherwise on ``device``, where "auto" (the default) means the CUDA card and
+raises without one, as the estimators' ``device`` does.
+
 All functions find roots of a batched *increasing* function ``f`` over
 positive inputs.
 """
@@ -20,10 +24,20 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..base import resolve_device
+
 _DEFAULT_TOL = 1e-6
 _SYNC_EVERY = 8
 
 ArrayOrFloat = Union[float, torch.Tensor]
+
+
+def _bounds_device(begin, end, device) -> torch.device:
+    """A tensor bound's device, else ``device`` resolved ("auto" = the card)."""
+    for v in (begin, end):
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return resolve_device(device)
 
 
 def _as_vec(v: Optional[ArrayOrFloat], n: int, dtype, device) -> torch.Tensor:
@@ -44,10 +58,11 @@ def init_bounds(
     end: Optional[ArrayOrFloat] = 1.0,
     max_iter: int = 100,
     dtype=torch.float32,
-    device=None,
+    device="auto",
     sync_every: int = _SYNC_EVERY,
 ):
     """Expand brackets so that ``f(begin) <= 0 <= f(end)`` row-wise."""
+    device = _bounds_device(begin, end, device)
     b = _as_vec(begin, n, dtype, device)
     e = _as_vec(end, n, dtype, device)
 
@@ -77,7 +92,7 @@ def binary_search(
     max_iter: int = 100,
     tol: float = _DEFAULT_TOL,
     dtype=torch.float32,
-    device=None,
+    device="auto",
     sync_every: int = _SYNC_EVERY,
 ) -> torch.Tensor:
     """Batched bisection."""
@@ -99,5 +114,51 @@ def binary_search(
         f_b = torch.where(move_b, f_m, f_b)
         e = torch.where(move_e, m, e)
         m = (b + e) * 0.5
+        f_m = f(m)
+    return m
+
+
+def _secant(b, e, f_b, f_e):
+    """The regula falsi point, its denominator kept at least 1e-30 away from 0."""
+    denom = f_b - f_e
+    tiny = torch.full_like(denom, 1e-30)
+    denom = torch.where(torch.abs(denom) < 1e-30, torch.where(denom < 0, -tiny, tiny), denom)
+    return b - (b - e) / denom * f_b
+
+
+def false_position(
+    f: Callable[[torch.Tensor], torch.Tensor],
+    n: int,
+    begin: Optional[ArrayOrFloat] = 1.0,
+    end: Optional[ArrayOrFloat] = 1.0,
+    max_iter: int = 100,
+    tol: float = _DEFAULT_TOL,
+    dtype=torch.float32,
+    device="auto",
+    sync_every: int = _SYNC_EVERY,
+) -> torch.Tensor:
+    """Batched regula falsi. An inactive row's bracket is frozen, so its
+    secant point is recomputed bit for bit: the stop test every
+    ``sync_every`` iterations gives the every-iteration result."""
+    b, e = init_bounds(
+        f, n, begin, end, max_iter=max_iter, dtype=dtype, device=device,
+        sync_every=sync_every,
+    )
+    f_b = f(b)
+    f_e = f(e)
+    m = _secant(b, e, f_b, f_e)
+    f_m = f(m)
+    for i in range(max_iter):
+        active = torch.abs(f_m) >= tol
+        if i % sync_every == 0 and not bool(active.any()):
+            break
+        same_sign = f_m * f_b > 0
+        move_b = active & same_sign
+        move_e = active & (~same_sign)
+        b = torch.where(move_b, m, b)
+        f_b = torch.where(move_b, f_m, f_b)
+        e = torch.where(move_e, m, e)
+        f_e = torch.where(move_e, f_m, f_e)
+        m = _secant(b, e, f_b, f_e)
         f_m = f(m)
     return m

@@ -5,7 +5,9 @@ before its optimization loop, as numpy arrays, and installs it in the
 port's estimator, so both continue from identical state;
 :func:`load_incremental_pca_state` does the same for a fitted
 ``IncrementalPCA`` or ``ExactIncrementalPCA``, so that a port
-``partial_fit`` or ``transform`` continues from the JAX package's fit.
+``partial_fit`` or ``transform`` continues from the JAX package's fit;
+:func:`load_encoder_variables` writes a flax MLP's weights into the port's
+:class:`~torchdr_tpu_torch.utils.encoders.MLP`.
 The port never imports JAX: the caller extracts the arrays
 (``np.asarray(...)``).
 """
@@ -93,3 +95,28 @@ def load_incremental_pca_state(estimator, arrays: Mapping[str, object]) -> None:
         setattr(estimator, key, value)
     estimator.n_samples_seen_ = int(arrays["n_samples_seen_"])
     estimator.is_fitted_ = True
+
+
+def load_encoder_variables(module, params: Mapping[str, object]):
+    """Write a flax MLP's variables into ``module`` (an ``MLP``).
+
+    ``params`` is ``{"params": {"Dense_i": {"kernel": (in, out), "bias":
+    (out,)}}}`` as numpy arrays (the top "params" level may be left out).
+    A kernel is transposed into ``Linear.weight``'s (out, in). The layers
+    are made for the first kernel's input width. Returns the written
+    variables by name, as a fit takes them for its starting weights.
+    """
+    dense = params.get("params", params)
+    names = sorted(dense, key=lambda name: int(name.split("_")[-1]))
+    kernels = [np.asarray(dense[name]["kernel"], np.float32) for name in names]
+    if tuple(k.shape[1] for k in kernels) != tuple(module.features):
+        raise ValueError(
+            f"[TorchDR-Torch] ERROR : the flax layers' widths {[k.shape[1] for k in kernels]} "
+            f"are not the MLP's {list(module.features)}."
+        )
+    module.build(kernels[0].shape[0])
+    with torch.no_grad():
+        for layer, name, kernel in zip(module.layers, names, kernels):
+            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(kernel.T)))
+            layer.bias.copy_(torch.from_numpy(np.array(dense[name]["bias"], np.float32)))
+    return {name: p.detach().clone() for name, p in module.named_parameters()}

@@ -5,12 +5,19 @@ Counterpart of ``torchdr_tpu/utils/optim.py``: an optimizer is an
 rate and momentum are arguments of each update, so a phase switch changes
 an argument and "re-instantiating the optimizer" zeroes the moments.
 Update semantics are torch.optim's (SGD: buf = g on the first step, then
-μ·buf + g; Adam with torch's default betas and decoupled weight decay from
-``weight_decay``). The step counter is a Python int, so no update reads
-the device. :func:`lbfgs_minimize` is the full L-BFGS solver with a
+μ·buf + g; Adam, AdamW and NAdam with torch's default betas and decoupled
+weight decay from ``weight_decay``). The step counter is a Python int, so
+no update reads the device.
+
+``RiemannianAdam`` steps on the Poincaré ball: an (n, d) point array,
+moved by the exponential map and projected back into the ball, its first
+moment carried along by parallel transport. ``LBFGS`` is a fixed-step
+two-loop recursion over a ring of curvature pairs, with invalid slots
+masked by ``torch.where`` and no host read. Every optimizer also takes a
+flat parameter vector, which is how the matcher passes an encoder's
+weights. :func:`lbfgs_minimize` is the full L-BFGS solver with a
 strong-Wolfe line search that the symmetric entropic affinity's LBFGS
-branch calls. The AdamW, NAdam, RiemannianAdam and fixed-step LBFGS
-optimizers wait for a later slice.
+branch calls.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+
+from .manifold import egrad2rgrad, poincare_expmap, poincare_inner, poincare_project, poincare_ptransp
 
 
 class OptimizerDef(NamedTuple):
@@ -41,20 +50,27 @@ def _adam_init(params: torch.Tensor) -> Dict:
     return {"m": torch.zeros_like(params), "v": torch.zeros_like(params), "step": 0}
 
 
-def _adam_update(grad, state, params, lr, hyper):
-    b1 = hyper.get("beta1", 0.9)
-    b2 = hyper.get("beta2", 0.999)
-    eps = hyper.get("eps", 1e-8)
-    wd = hyper.get("weight_decay", 0.0)
-    t = state["step"] + 1
-    if wd:
-        params = params * (1.0 - lr * wd)  # decoupled decay
-    m = b1 * state["m"] + (1 - b1) * grad
-    v = b2 * state["v"] + (1 - b2) * grad * grad
-    m_hat = m / (1 - b1**t)
-    v_hat = v / (1 - b2**t)
-    new = params - lr * m_hat / (torch.sqrt(v_hat) + eps)
-    return new, {"m": m, "v": v, "step": t}
+def _make_adam(weight_decay: float = 0.0, nesterov: bool = False):
+    """Adam's update; AdamW's default decay and NAdam's Nesterov moment."""
+
+    def update(grad, state, params, lr, hyper):
+        b1 = hyper.get("beta1", 0.9)
+        b2 = hyper.get("beta2", 0.999)
+        eps = hyper.get("eps", 1e-8)
+        wd = hyper.get("weight_decay", weight_decay)
+        t = state["step"] + 1
+        if wd:
+            params = params * (1.0 - lr * wd)  # decoupled decay
+        m = b1 * state["m"] + (1 - b1) * grad
+        v = b2 * state["v"] + (1 - b2) * grad * grad
+        m_hat = m / (1 - b1**t)
+        if nesterov:
+            m_hat = b1 * m_hat + (1 - b1) * grad / (1 - b1**t)
+        v_hat = v / (1 - b2**t)
+        new = params - lr * m_hat / (torch.sqrt(v_hat) + eps)
+        return new, {"m": m, "v": v, "step": t}
+
+    return update
 
 
 def _reset(state: Dict) -> Dict:
@@ -66,9 +82,93 @@ def _reset(state: Dict) -> Dict:
     return out
 
 
+# --- Riemannian Adam on the Poincaré ball, over one (n, d) point array ---
+
+
+def _radam_init(params: torch.Tensor) -> Dict:
+    return {"m": torch.zeros_like(params), "v": torch.zeros_like(params[..., :1]), "step": 0}
+
+
+def _radam_update(grad, state, point, lr, hyper):
+    b1 = hyper.get("beta1", 0.9)
+    b2 = hyper.get("beta2", 0.999)
+    eps = hyper.get("eps", 1e-8)
+    wd = hyper.get("weight_decay", 0.0)
+    t = state["step"] + 1
+    # the bias corrections in float32, as the JAX package's step counter is
+    tf = torch.tensor(float(t), dtype=torch.float32)
+
+    g = grad + wd * point
+    rgrad = egrad2rgrad(point, g)
+    m = b1 * state["m"] + (1 - b1) * rgrad
+    v = b2 * state["v"] + (1 - b2) * poincare_inner(point, rgrad)
+    denom = torch.sqrt(v) + eps
+    step_size = lr * torch.sqrt(1 - b2**tf) / (1 - b1**tf)  # a CPU scalar tensor
+    new_point = poincare_project(poincare_expmap(-step_size * (m / denom), point))
+    m = poincare_ptransp(point, new_point, m)
+    return new_point, {"m": m, "v": v, "step": t}
+
+
+# --- L-BFGS: fixed step, fixed memory, no line search ---
+
+_LBFGS_MEM = 10
+
+
+def _lbfgs_init(params: torch.Tensor) -> Dict:
+    flat = params.reshape(-1)
+    d = flat.numel()
+    return {
+        "s": torch.zeros((_LBFGS_MEM, d), dtype=flat.dtype, device=flat.device),
+        "y": torch.zeros((_LBFGS_MEM, d), dtype=flat.dtype, device=flat.device),
+        "rho": torch.zeros((_LBFGS_MEM,), dtype=flat.dtype, device=flat.device),
+        "prev_x": flat,
+        "prev_g": torch.zeros_like(flat),
+        "step": 0,
+    }
+
+
+def _lbfgs_update(grad, state, params, lr, hyper):
+    """One fixed step ``x - lr · H g``: the pair of the previous step enters
+    the ring when its curvature s·y exceeds 1e-10 (a device test, applied by
+    ``torch.where``); the two-loop recursion skips empty slots."""
+    flat, g = params.reshape(-1), grad.reshape(-1)
+    m = _LBFGS_MEM
+    step = state["step"]
+    s_k = flat - state["prev_x"]
+    y_k = g - state["prev_g"]
+    sy = torch.dot(s_k, y_k)
+    valid = (sy > 1e-10) & (step > 0)
+    slot = max(step - 1, 0) % m
+
+    def put(ring, row):
+        new = ring.clone()
+        new[slot] = row
+        return torch.where(valid, new, ring)
+
+    s_h, y_h = put(state["s"], s_k), put(state["y"], y_k)
+    rho = put(state["rho"], 1.0 / torch.clamp(sy, min=1e-30))
+    r = _two_loop(g, s_h, y_h, rho, slot, m)
+    new_flat = flat - lr * r
+    new_state = {"s": s_h, "y": y_h, "rho": rho, "prev_x": flat, "prev_g": g, "step": step + 1}
+    return new_flat.reshape(params.shape), new_state
+
+
+def _lbfgs_reset(state: Dict) -> Dict:
+    """Zero the curvature ring and the previous gradient; keep ``prev_x``."""
+    out = dict(state)
+    for key in ("s", "y", "rho", "prev_g"):
+        out[key] = torch.zeros_like(out[key])
+    out["step"] = 0
+    return out
+
+
 _OPTIMIZERS = {
     "SGD": (_sgd_init, _sgd_update),
-    "Adam": (_adam_init, _adam_update),
+    "Adam": (_adam_init, _make_adam()),
+    "AdamW": (_adam_init, _make_adam(weight_decay=1e-2)),
+    "NAdam": (_adam_init, _make_adam(nesterov=True)),
+    "RiemannianAdam": (_radam_init, _radam_update),
+    "LBFGS": (_lbfgs_init, _lbfgs_update),
 }
 
 
@@ -79,7 +179,7 @@ def make_optimizer(name: str) -> OptimizerDef:
             f"Available: {sorted(_OPTIMIZERS)}."
         )
     init, update = _OPTIMIZERS[name]
-    return OptimizerDef(name, init, update, _reset)
+    return OptimizerDef(name, init, update, _lbfgs_reset if name == "LBFGS" else _reset)
 
 
 def normalize_optimizer_kwargs(kwargs: Dict | None) -> Dict:
@@ -99,8 +199,6 @@ def normalize_optimizer_kwargs(kwargs: Dict | None) -> Dict:
 # search and outer iteration are ``lax.while_loop`` programs. Here both are
 # Python loops that read a few scalars per trial; the arithmetic is the
 # JAX package's, in the parameters' dtype.
-
-_LBFGS_MEM = 10
 
 
 def _ravel(params) -> Tuple[torch.Tensor, Callable]:
