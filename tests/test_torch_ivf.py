@@ -386,13 +386,9 @@ def test_resolved_knobs_match_jax(searched):
 
 @pytest.mark.parametrize("call, exc, match", [
     (lambda X, i: tivf.ivf_knn(None, index=i, k=5, scan_impl="pallas"), ValueError, "scan_impl"),
-    (lambda X, i: tivf.ivf_build(X, n_clusters=16, storage="split"), NotImplementedError, "12c"),
-    (lambda X, i: tivf.ivf_build(X, n_clusters=16, storage="int8"), NotImplementedError, "12c"),
-    (lambda X, i: tivf.ivf_build(X, n_clusters=16, split_bytes=1), NotImplementedError, "12c"),
     (lambda X, i: tivf.ivf_build(X, n_clusters=16, storage="f16"), ValueError, "storage"),
-    (lambda X, i: tivf.ivf_knn(None, index=i, k=5, nomination="supers"),
-     NotImplementedError, "12c"),
-    (lambda X, i: tivf.ivf_knn(None, index=i, k=5, nprobe_supers=4), NotImplementedError, "12c"),
+    (lambda X, i: tivf.ivf_build(X, n_clusters=16, storage="int8", align=False),
+     ValueError, "align"),
     (lambda X, i: tivf.ivf_knn(None, index=i, k=5, scan_precision="low"),
      ValueError, "scan_precision"),
     (lambda X, i: tivf.ivf_knn(None, index=i, k=5, scan_fidelity="lo"),
@@ -406,6 +402,35 @@ def test_error_paths(searched, call, exc, match):
     X, _, tindex = searched
     with pytest.raises(exc, match=match):
         call(torch.from_numpy(X[:1000]), tindex)
+
+
+@pytest.mark.parametrize("case", [
+    "storage split", "storage int8", "auto past split_bytes", "nomination supers",
+    "nprobe_supers",
+])
+def test_tiers_once_refused_now_run(searched, case):
+    """The five calls that raised ``NotImplementedError`` before the split,
+    int8 and supers tiers were ported now build and search: the tier's
+    planes have their dtypes, and the search finds nine in ten of the float32
+    index's neighbours."""
+    X, _, tindex = searched
+    Xt = torch.from_numpy(X[:1000])
+    want = tivf.ivf_knn(None, index=tivf.ivf_build(Xt, n_clusters=16, device="cpu"), k=5)[1]
+    if case.startswith("nomination") or case == "nprobe_supers":
+        kw = dict(nomination="supers") if case.startswith("nomination") else dict(nprobe_supers=4)
+        index = tivf.ivf_build(Xt, n_clusters=16, n_superlist=4, device="cpu")
+        got = tivf.ivf_knn(None, index=index, k=5, **kw)[1]
+    else:
+        kw = {"storage split": dict(storage="split"), "storage int8": dict(storage="int8"),
+              "auto past split_bytes": dict(split_bytes=1)}[case]
+        index = tivf.ivf_build(Xt, n_clusters=16, device="cpu", **kw)
+        if index.scales is not None:
+            assert index.X_sorted.dtype == torch.int8 and index.X_lo is None
+        else:
+            assert index.X_sorted.dtype == index.X_lo.dtype == torch.bfloat16
+        assert index.xnorm2.dtype == torch.float32
+        got = tivf.ivf_knn(None, index=index, k=5)[1]
+    assert float((want[:, :, None] == got[:, None, :]).any(-1).float().mean()) > 0.9
 
 
 def test_non_euclidean_metric_raises_in_the_affinity():

@@ -525,7 +525,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models/spectral/phate.py", "eval/__init__.py", "eval/knn_metrics.py",
                 "eval/silhouette.py", "eval/kmeans_ari.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/knn.py", "parallel/sparse.py", "parallel/ivf.py",
-                "utils/manifold.py", "utils/encoders.py", "models/neighbor/cosne.py"):
+                "utils/manifold.py", "utils/encoders.py", "models/neighbor/cosne.py",
+                "ops/pq.py", "ops/loader.py", "ops/streaming.py", "utils/native_loader.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:
@@ -534,14 +535,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in banned, f"{path.relative_to(ROOT)} imports {mod}"
 
 
-# Names of the JAX package's ``__all__`` that wait for a ROADMAP item: 12c
-# (PQ), 13 (loader, streaming, batch-streamed builds).
-_WAITING = {
-    "PQCodebook": "12c", "pq_train": "12c", "pq_encode": "12c", "pq_search": "12c",
-    "pq_knn": "12c", "BatchSource": 13, "get_loader_metadata": 13,
-    "validate_deterministic_loader": 13, "knn_graph_from_batches": 13,
-    "knn_graph_streaming": 13, "ivf_build_from_batches": 13,
-}
+# Names of the JAX package's ``__all__`` that wait for a ROADMAP item: none
+# since items 12c and 13.
+_WAITING: dict = {}
 
 
 @pytest.mark.parametrize("module", ["", ".ops"])

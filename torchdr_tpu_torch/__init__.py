@@ -75,9 +75,16 @@ from .ops.distance import (  # noqa: E402
     pairwise_distances,
     pairwise_distances_indexed,
 )
-from .ops.ivf import ivf_build, ivf_knn, ivf_knn_queries  # noqa: E402
+from .ops.ivf import ivf_build, ivf_build_from_batches, ivf_knn, ivf_knn_queries  # noqa: E402
 from .ops.kmeans import kmeans_fit  # noqa: E402
 from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
+from .ops.loader import (  # noqa: E402
+    BatchSource,
+    get_loader_metadata,
+    validate_deterministic_loader,
+)
+from .ops.pq import pq_encode, pq_knn, pq_search, pq_train  # noqa: E402
+from .ops.streaming import knn_graph_from_batches, knn_graph_streaming  # noqa: E402
 from .ops.root_search import binary_search, false_position  # noqa: E402
 
 __all__ = [
@@ -128,9 +135,19 @@ __all__ = [
     "pairwise_distances",
     "pairwise_distances_indexed",
     "ivf_build",
+    "ivf_build_from_batches",
     "ivf_knn",
     "ivf_knn_queries",
     "kmeans_fit",
+    "knn_graph_from_batches",
+    "knn_graph_streaming",
+    "BatchSource",
+    "get_loader_metadata",
+    "validate_deterministic_loader",
+    "pq_train",
+    "pq_encode",
+    "pq_search",
+    "pq_knn",
     "KnnConfig",
     "EXACT",
     "FAST",

@@ -1,9 +1,9 @@
 """kNN tier configuration object (copy of ``torchdr_tpu/ops/knn_config.py``).
 
 "exact" is the flat tier; "approx" maps to it (see
-:func:`torchdr_tpu_torch.ops.distance.knn_graph`); "ivf" is the float32
-IVF tier (:func:`torchdr_tpu_torch.ops.ivf.ivf_knn`), whose knobs are the
-fields from ``nprobe`` on.
+:func:`torchdr_tpu_torch.ops.distance.knn_graph`); "ivf" is the IVF tier
+(:func:`torchdr_tpu_torch.ops.ivf.ivf_knn`), whose knobs are the fields
+from ``nprobe`` on.
 """
 
 from __future__ import annotations
@@ -32,10 +32,12 @@ class KnnConfig:
         the estimators' default.
     nomination : {None, "flat", "adjacency", "supers"}
         None picks adjacency when the index has a cell table and nlist ≥
-        1024, flat otherwise. "supers" raises (ROADMAP item 12c).
+        1024, flat otherwise. "supers" needs the search's ``nprobe_supers``,
+        which the estimators do not pass: there it searches as "flat", as in
+        the JAX package.
     storage : {"auto", "f32", "split", "int8"}
-        "auto" and "f32" build float32 storage; "split", "int8" and "auto"
-        past 4 GB raise (ROADMAP item 12c).
+        "f32" float32 rows, "split" the bf16 residual split, "int8" the int8
+        tier; "auto" takes the split past 4 GB of sorted rows.
     """
 
     mode: str = "exact"
@@ -78,5 +80,5 @@ class KnnConfig:
 EXACT = KnnConfig()
 #: Preset: the JAX package's fast tier; the port runs it exactly.
 FAST = KnnConfig(mode="approx", precision="high", recall_target=0.95)
-#: Preset: the IVF tier, float32 storage (``ops/ivf.py``).
+#: Preset: the IVF tier (``ops/ivf.py``), storage "auto".
 IVF = KnnConfig(mode="ivf", precision="high")

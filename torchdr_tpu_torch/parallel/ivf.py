@@ -7,8 +7,9 @@ number of query blocks, and each shard's device runs the probe
 (``ops/ivf._ivf_search_impl``) on its slice at its absolute layout
 position. Shard boundaries fall on query-block boundaries, so every
 block chooses the same cells as in the single-device search and the
-results are those of ``ivf_knn`` over the same blocks. Float32 storage
-only, as ``ops/ivf`` (the residual and int8 tiers are ROADMAP item 12c).
+results are those of ``ivf_knn`` over the same blocks. Under the split
+tier the lo plane is cut with the query rows; the norms, scales, cell
+table and supers are replicated with the rest of the index.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..ops.ivf import (
     IVFIndex,
     _check_search_args,
     _ivf_search_impl,
+    _pad_queries,
     _resolve_search_knobs,
     ivf_build,
 )
@@ -69,11 +71,12 @@ def ivf_knn_sharded(
         index = ivf_build(X, n_clusters=n_clusters, generator=generator, storage=storage,
                           device=device)
     n, chunk = index.n, index.chunk
-    nprobe, budget, m_eff, merge, max_ch, scan_impl, _, nominate = _resolve_search_knobs(
+    nprobe, budget, m_eff, merge, max_ch, scan_impl, n_supers, nominate = _resolve_search_knobs(
         index, k, nprobe, m, budget, merge, scan_impl, nprobe_supers, nomination, rerank=rerank,
     )
     search = dict(k=k, ncells=nprobe, budget=budget, block=block, chunk=chunk, m=m_eff,
-                  merge=merge, max_ch=max_ch, nominate=nominate, rerank=rerank)
+                  merge=merge, max_ch=max_ch, nominate=nominate, rerank=rerank,
+                  scan_fidelity=scan_fidelity, n_supers=n_supers)
 
     # every row of the layout, padded with dead queries so that each shard
     # is a whole number of query blocks
@@ -81,12 +84,9 @@ def ivf_knn_sharded(
     world = len(mesh)
     total = index.X_sorted.shape[0]
     n_pad = pad_to_multiple(total, world * block)
-    Qs, out_ids = index.X_sorted, index.ids_sorted
+    Qs, Qs_lo, out_ids = index.X_sorted, index.X_lo, index.ids_sorted
     if n_pad != total:
-        Qs = torch.cat([Qs, torch.full((n_pad - total, Qs.shape[1]), 1e12, device=dev)])
-        out_ids = torch.cat(
-            [out_ids, torch.full((n_pad - total,), -2, dtype=torch.int32, device=dev)]
-        )
+        Qs, Qs_lo, out_ids = _pad_queries(Qs, Qs_lo, out_ids, n_pad - total)
     q_rows = torch.where(out_ids >= 0, out_ids + (0 if exclude_self else n), out_ids)
     shard = n_pad // world
     ds, is_, replicas = [], [], {}
@@ -95,8 +95,10 @@ def ivf_knn_sharded(
             replicas[shard_dev] = _index_on(index, shard_dev)
         idx = replicas[shard_dev]
         lo = r * shard
+        lo_plane = None if Qs_lo is None else Qs_lo[lo : lo + shard].to(shard_dev)
         d, i = _ivf_search_impl(Qs[lo : lo + shard].to(shard_dev),
-                                q_rows[lo : lo + shard].to(shard_dev), idx, pos0=lo, **search)
+                                q_rows[lo : lo + shard].to(shard_dev), idx, pos0=lo,
+                                Qs_lo=lo_plane, **search)
         ds.append(d.to(dev))
         is_.append(i.to(dev))
     # back to original row order (dead rows to the spill slot n)
