@@ -113,11 +113,26 @@ Phases, in order; any failure exits non-zero:
     ``ivf_knn_sharded`` on the int8 index over a 4-way mesh of the card,
     each row's ids equal as sets to the single-device search's on at
     least 0.999 of the rows;
-12. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+12. the user API: ``python -m torchdr_tpu_torch.cli info`` names the card;
+    ``cli run`` of a script that fits ``UMAP(random_state=0)`` on the
+    60,000 rows and prints its fit seconds, K1 launches (1,000) and 10-NN
+    accuracy (at least 0.9), and of one whose ``make_mesh()`` under
+    ``--virtual-cpu-devices 2`` must be two CPU devices; phase 4's UMAP,
+    ``PCA(n_components=50)`` on the 60,000 rows and phase 10's parametric
+    UMAP saved by ``utils.save_estimator`` and loaded onto the card by
+    ``load_estimator`` (the embedding and PCA's ``transform`` bit for bit,
+    the parametric ``transform`` of the 10,000 new rows within 1e-6), with
+    save and load seconds and file sizes; ``TSNE(random_state=0,
+    max_iter=100)`` on the 10,000 rows and ``UMAP(random_state=0,
+    max_iter=100)`` on the 60,000 under ``utils.device_trace``, the trace's
+    events of each hand kernel (by its ``__global__`` name) equal to its
+    wrapper's launch count, with their traced device time; the four parts
+    timed by ``utils.PhaseTimer``;
+13. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-13. with ``--profile`` only: device time by kernel and the device's idle
+14. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
     and over 100 steps of each fit of phase 5 (torch.profiler).
 
@@ -130,7 +145,8 @@ with ``--spectral``, phase 8 alone; with ``--mesh`` it builds K1, K2 and K3
 and runs phase 9 alone (with the three fits without a mesh beside it). With
 ``--engine`` it builds K1, K2 and K3 and runs phase 10 alone, with the
 UMAP and t-SNE fits of phase 4 beside it. With ``--tiers`` it builds K1
-and runs phase 11 alone (~7 min). With
+and runs phase 11 alone (~7 min). With ``--api`` it builds K1, K2 and K3,
+fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -306,6 +322,48 @@ STREAM_ROWS, STREAM_BATCH = N_TIERS, 1 << 18
 # centres drawn N(0, 10^2), unit noise, k = 15)
 N_BENCH, BENCH_CENTERS, EXACT_BATCHES, N_PQ, PQ_M, PQ_GAIN = 1_000_000, 1_000, 64, 100_000, 16, 0.1
 SHARDED_AGREE_MIN = 0.999  # rows whose sharded ids equal the single-device ones as sets
+
+# The user-API phase. The CLI-run UMAP fit on the 60,000 rows reads K1
+# 1,000 times (once a step) and a 10-NN accuracy of at least API_MIN_ACC; a
+# loaded parametric UMAP's transform of the N_NEW new rows is held within
+# PUMAP_LOAD_TOL of the fitted one's (the same weights, read back from float32
+# files, on the same card); the loaded UMAP's embedding and PCA's transform
+# are held bit for bit. The traced fits run TRACE_STEPS steps.
+API_MIN_ACC, API_UMAP_STEPS, PUMAP_LOAD_TOL, TRACE_STEPS = 0.9, 1000, 1e-6, 100
+# each launch-counting wrapper of the traced fits, and the __global__ kernels
+# one of its calls launches, once each (matched as substrings of the traced
+# names, mangled or demangled; no name is a substring of another)
+TRACED_KERNELS = {
+    "fused_shared_repulsion": ("repulsion_kernel",),
+    "rowlse_fwd": ("rowlse_partial_kernel", "rowlse_merge_kernel"),
+    "rowlse_bwd": ("rowlse_bwd_partial_kernel", "rowlse_bwd_merge_kernel"),
+}
+# the script that the CLI runs: the north-star fit, its K1 launches and its
+# 10-NN accuracy as one JSON line (chip_smoke is importable: the CLI runs
+# from the checkout's root)
+CLI_UMAP_SCRIPT = """
+import json, sys, time
+import torch
+from chip_smoke import knn_label_accuracy
+from torchdr_tpu_torch import UMAP
+from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
+
+n, d, clusters, seed = (int(a) for a in sys.argv[1:5])
+X, labels = make_clustered(n, d, clusters, seed=seed)
+model = UMAP(random_state=0, device="auto")
+fused_shared_repulsion.launches = 0
+t0 = time.perf_counter()
+Z = model.fit_transform(X)
+fit_s = time.perf_counter() - t0
+acc = knn_label_accuracy(torch, torch.from_numpy(Z).cuda(), torch.from_numpy(labels).cuda())
+print(json.dumps({"fit_s": fit_s, "steps": model.n_iter_,
+                  "k1_launches": fused_shared_repulsion.launches, "knn10_label_acc": acc}))
+"""
+CLI_MESH_SCRIPT = """
+from torchdr_tpu_torch.parallel import make_mesh
+print("MESH", [str(d) for d in make_mesh().devices])
+"""
 
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
@@ -1685,10 +1743,10 @@ def run_engine_path(torch, counters, X, labels, single=None) -> dict:
     on the 60,000 rows and parametric t-SNE on the 10,000 (the MLP encoder
     at ENCODER_HIDDEN, Adam at ENCODER_LR); UMAP with the bands edge
     schedule on the 60,000 rows; each beside phase 4's fit of the same
-    estimator (run here when ``single`` is None)."""
+    estimator (run here when ``single`` is None). The fitted parametric
+    UMAP is returned under "parametric UMAP model"."""
     from torchdr_tpu_torch import COSNE, TSNE, UMAP
     from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
-    from torchdr_tpu_torch.utils.encoders import make_mlp_encoder
 
     X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
     if single is None:
@@ -1717,8 +1775,7 @@ def run_engine_path(torch, counters, X, labels, single=None) -> dict:
         out[tag] = fit
 
     def parametric(cls, data, y, expect):
-        model = cls(random_state=0, device="auto", encoder=make_mlp_encoder(2, ENCODER_HIDDEN),
-                    optimizer="Adam", lr=ENCODER_LR)
+        model = parametric_model(cls)
         fit = run_fit(torch, model, data, y, counters, expect=expect)
         Xt = torch.from_numpy(data).cuda()
         err = float((model.transform(Xt) - model.embedding_).abs().max())
@@ -1742,6 +1799,7 @@ def run_engine_path(torch, counters, X, labels, single=None) -> dict:
                    torch.from_numpy(yn).cuda()))
     print("engine parametric UMAP " + json.dumps(fit), flush=True)
     out["parametric UMAP"] = fit
+    out["parametric UMAP model"] = pumap  # phase 12 saves and loads it
 
     _, fit = parametric(TSNE, X10, labels10, ("rowlse_fwd", "rowlse_bwd"))
     print("engine parametric TSNE " + json.dumps(fit), flush=True)
@@ -1905,6 +1963,206 @@ def run_spectral_path(torch, counters, X, labels) -> dict:
     torch.cuda.empty_cache()
 
     out["phate"] = fit(PHATE(random_state=0, device="auto"), X10, labels10, min_acc=0.9)
+    return out
+
+
+def parametric_model(cls):
+    """The engine phase's parametric estimator: the MLP encoder at
+    ENCODER_HIDDEN, Adam at ENCODER_LR."""
+    from torchdr_tpu_torch.utils.encoders import make_mlp_encoder
+
+    return cls(random_state=0, device="auto", encoder=make_mlp_encoder(2, ENCODER_HIDDEN),
+               optimizer="Adam", lr=ENCODER_LR)
+
+
+def cli(*args, timeout: int = 600):
+    """``python -m torchdr_tpu_torch.cli *args`` from the checkout's root;
+    fails unless it exits 0. Its standard output."""
+    out = subprocess.run([sys.executable, "-m", "torchdr_tpu_torch.cli", *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                         text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {' '.join(args)}: exit {out.returncode}\n{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def save_and_load(torch, model, fresh, path) -> dict:
+    """``save_estimator`` of ``model`` to ``path``, then ``load_estimator``
+    into ``fresh``: the seconds of each and the files' sizes."""
+    from pathlib import Path
+
+    from torchdr_tpu_torch.utils import load_estimator, save_estimator
+
+    t0 = time.perf_counter()
+    save_estimator(model, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_estimator(fresh, path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    p = Path(path)
+    sizes = {f.name: f.stat().st_size for f in sorted(p.parent.glob(p.name + ".*"))}
+    return {"save_s": save_s, "load_s": load_s, "bytes": sizes}
+
+
+def traced_fit(torch, model, X, counters, smi: str) -> dict:
+    """One fit under ``utils.profiling.device_trace`` with every launch
+    counter set to 0 just before; fails unless each kernel of
+    TRACED_KERNELS appears in the written trace as many times as its
+    wrapper counted calls (so the wrapper's kernels per call times its
+    count in all), and its wrapper launched once a step or not at all."""
+    import glob
+    import tempfile
+
+    from torchdr_tpu_torch.utils import device_trace
+
+    for fn in counters:
+        fn.launches = 0
+    with tempfile.TemporaryDirectory(prefix="trace_") as logdir:
+        t0 = time.perf_counter()
+        with device_trace(logdir):
+            model.fit_transform(X)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    name = type(model).__name__
+    rec = {"model": name, "n": X.shape[0], "steps": model.n_iter_, "wall_s": wall,
+           "trace_mb": trace_mb, "kernel_events": len(kernels), "kernels": {}}
+    others = {k: v for k, v in launches.items() if k not in TRACED_KERNELS and v}
+    if others:
+        raise AssertionError(f"traced {name}: launches of {others}")
+    for wrapper, globals_ in TRACED_KERNELS.items():
+        calls = launches[wrapper]
+        if calls not in (0, model.n_iter_):
+            raise AssertionError(f"traced {name}: {wrapper} launched {calls} times in "
+                                 f"{model.n_iter_} steps")
+        seen = 0
+        for kernel in globals_:
+            evs = [e for e in kernels if kernel in e.get("name", "")]
+            seen += len(evs)
+            dev_ms = sum(float(e.get("dur", 0.0)) for e in evs) / 1e3
+            rec["kernels"][kernel] = {"wrapper": wrapper, "launches": calls, "events": len(evs),
+                                      "device_ms": dev_ms,
+                                      "ms_per_launch": dev_ms / len(evs) if evs else None}
+            print(f"api trace {name}: {kernel} {len(evs)} events, {calls} counted launches, "
+                  f"device {dev_ms:.4f} ms ({smi})", flush=True)
+            if len(evs) != calls:
+                raise AssertionError(f"traced {name}: {len(evs)} {kernel} events, "
+                                     f"{calls} counted launches of {wrapper}")
+        if seen != calls * len(globals_):
+            raise AssertionError(f"traced {name}: {seen} kernel events of {wrapper}, "
+                                 f"{calls} calls x {len(globals_)} kernels")
+    print("api trace " + json.dumps(rec), flush=True)
+    return rec
+
+
+def run_api_path(torch, counters, X, labels, smi: str, umap=None, pumap=None) -> dict:
+    """Phase 12, the user API: (a) ``cli info`` names the card; (b) ``cli
+    run`` of a script that fits the north-star UMAP on the 60,000 rows
+    (K1 API_UMAP_STEPS times, accuracy at least API_MIN_ACC), and of one
+    under ``--virtual-cpu-devices 2`` whose ``make_mesh()`` is two CPU
+    devices; (c) checkpoints saved and loaded onto the card: phase 4's UMAP
+    (``embedding_`` bit for bit), PCA with 50 components (``transform`` bit
+    for bit) and phase 10's parametric UMAP (``transform`` of N_NEW new rows
+    within PUMAP_LOAD_TOL); (d) t-SNE on the 10,000 rows and UMAP on the
+    60,000 for TRACE_STEPS steps under ``device_trace``, each hand kernel's
+    traced events equal to its wrapper's count; the four parts timed by
+    ``PhaseTimer``. Phase 4's UMAP and phase 10's parametric UMAP are fitted
+    here when not given."""
+    import tempfile
+
+    from torchdr_tpu_torch import PCA, TSNE, UMAP
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.utils import PhaseTimer
+
+    if umap is None:
+        umap = UMAP(random_state=0, device="auto")
+        run_fit(torch, umap, X, labels, counters, expect=("fused_shared_repulsion",))
+    if pumap is None:
+        pumap = parametric_model(UMAP)
+        run_fit(torch, pumap, X, labels, counters, expect=("fused_shared_repulsion",))
+    timer, out = PhaseTimer(), {}
+
+    # (a) info
+    kind = torch.cuda.get_device_name(0)
+    with timer.phase("info"):
+        info = cli("info")
+    devices = [line for line in info.splitlines() if line.startswith("devices:")]
+    print(f"api info: {info.strip()!r}", flush=True)
+    if len(devices) != 1 or kind not in devices[0]:
+        raise AssertionError(f"cli info names no {kind!r} on its devices line: {info!r}")
+
+    with tempfile.TemporaryDirectory(prefix="api_") as tmp:
+        # (b) the main path through the CLI, and a virtual CPU mesh
+        umap_script, mesh_script = os.path.join(tmp, "umap.py"), os.path.join(tmp, "mesh.py")
+        with open(umap_script, "w") as f:
+            f.write(CLI_UMAP_SCRIPT)
+        with open(mesh_script, "w") as f:
+            f.write(CLI_MESH_SCRIPT)
+        with timer.phase("cli run"):
+            t0 = time.perf_counter()
+            stdout = cli("run", umap_script, str(N), str(D_IN), str(N_CLUSTERS), str(SEED))
+            run = json.loads(stdout.strip().splitlines()[-1])
+            run["command_s"] = time.perf_counter() - t0
+            mesh = cli("run", "--virtual-cpu-devices", "2", mesh_script)
+        print("api cli run " + json.dumps(run), flush=True)
+        if run["k1_launches"] != API_UMAP_STEPS or run["steps"] != API_UMAP_STEPS:
+            raise AssertionError(f"cli run UMAP: {run['k1_launches']} K1 launches in "
+                                 f"{run['steps']} steps, not {API_UMAP_STEPS}")
+        if not run["knn10_label_acc"] >= API_MIN_ACC:
+            raise AssertionError(f"cli run UMAP: accuracy {run['knn10_label_acc']} < {API_MIN_ACC}")
+        if "MESH ['cpu', 'cpu']" not in mesh:
+            raise AssertionError(f"cli run --virtual-cpu-devices 2: {mesh!r}")
+        out["cli_run"] = run
+
+        # (c) checkpoints onto the card
+        with timer.phase("checkpoints"):
+            fresh = UMAP(random_state=0, device="auto")
+            rec = save_and_load(torch, umap, fresh, os.path.join(tmp, "umap_60k"))
+            if fresh.embedding_.device.type != "cuda" or not torch.equal(
+                    fresh.embedding_, umap.embedding_):
+                raise AssertionError("loaded UMAP: embedding_ not on the card or not equal")
+            out["umap_60k"] = rec
+
+            pca = PCA(n_components=50, device="auto")
+            pca.fit_transform(X)
+            Zp = pca.transform(X)
+            fresh = PCA(n_components=50, device="auto")
+            rec = save_and_load(torch, pca, fresh, os.path.join(tmp, "pca_50"))
+            if not np.array_equal(fresh.transform(X), Zp):
+                raise AssertionError("loaded PCA: transform of the rows differs")
+            out["pca_50"] = rec
+
+            Xn = torch.from_numpy(new_rows(N_NEW, SEED + 1)[0]).cuda()
+            Zn = pumap.transform(Xn)
+            fresh = parametric_model(UMAP)
+            rec = save_and_load(torch, pumap, fresh, os.path.join(tmp, "parametric_umap"))
+            rec["transform_max_diff"] = float((fresh.transform(Xn) - Zn).abs().max())
+            if not rec["transform_max_diff"] <= PUMAP_LOAD_TOL:
+                raise AssertionError(f"loaded parametric UMAP: transform {rec} > {PUMAP_LOAD_TOL}")
+            out["parametric_umap"] = rec
+        for key in ("umap_60k", "pca_50", "parametric_umap"):
+            print(f"api checkpoint {key} " + json.dumps(out[key]), flush=True)
+
+    # (d) device traces of two short fits
+    X10, _ = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    with timer.phase("trace"):
+        out["trace_tsne"] = traced_fit(
+            torch, TSNE(random_state=0, max_iter=TRACE_STEPS, device="auto"), X10, counters, smi)
+        out["trace_umap"] = traced_fit(
+            torch, UMAP(random_state=0, max_iter=TRACE_STEPS, device="auto"), X, counters, smi)
+    for name, wrappers in (("trace_tsne", ("rowlse_fwd", "rowlse_bwd")),
+                           ("trace_umap", ("fused_shared_repulsion",))):
+        for kernel in out[name]["kernels"].values():
+            want = TRACE_STEPS if kernel["wrapper"] in wrappers else 0
+            if kernel["launches"] != want:
+                raise AssertionError(f"{name}: {kernel}")
+    print(f"api phases: {timer.summary()} ({smi})", flush=True)
+    out["phases_s"] = dict(timer.timings)
     return out
 
 
@@ -2093,12 +2351,13 @@ def main() -> int:
     rowlse_only = "--rowlse" in sys.argv[1:]
     engine_only = "--engine" in sys.argv[1:]
     tiers_only = "--tiers" in sys.argv[1:]
+    api_only = "--api" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
     elif rowlse_only:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
-    elif mesh_only or engine_only:
+    elif mesh_only or engine_only or api_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only or tiers_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
@@ -2140,6 +2399,10 @@ def main() -> int:
             profile_engine(torch, X)
         print(smi, flush=True)
         return 0
+    if api_only:
+        run_api_path(torch, counters, X, labels, smi)
+        print(smi, flush=True)
+        return 0
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -2155,8 +2418,8 @@ def main() -> int:
     k2, k3 = check_k2_k3(torch, gen)
 
     # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784
-    umap = run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
-                   expect=("fused_shared_repulsion",))
+    umap_model = UMAP(random_state=0, device="auto")
+    umap = run_fit(torch, umap_model, X, labels, counters, expect=("fused_shared_repulsion",))
     k1["launches"] = umap["launches"]["fused_shared_repulsion"]
     X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
     tsne = run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10, counters,
@@ -2189,10 +2452,15 @@ def main() -> int:
     k2["general"], k3["general"] = general["K2"], general["K3"]
 
     # 10. the engine: COSNE, parametric UMAP and t-SNE, UMAP's bands schedule
-    run_engine_path(torch, counters, X, labels, single={"UMAP": umap, "TSNE": tsne})
+    engine = run_engine_path(torch, counters, X, labels, single={"UMAP": umap, "TSNE": tsne})
 
     # 11. the kNN layer's storage tiers and batch-streamed builds at 10M x 128
     run_tiers_path(torch, counters, smi)
+
+    # 12. the user API: the CLI, checkpoints of phase 4's UMAP and phase 10's
+    # parametric UMAP loaded onto the card, device traces of two fits
+    run_api_path(torch, counters, X, labels, smi, umap=umap_model,
+                 pumap=engine["parametric UMAP model"])
 
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn

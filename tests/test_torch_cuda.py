@@ -1178,3 +1178,50 @@ def test_root_search_with_scalar_bounds_runs_on_the_card(cuda, name):
     root = getattr(root_search, name)(lambda x: torch.log(x) - torch.log(target), 33)
     assert root.device.type == "cuda"
     assert float((root - target).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_cpu_fit_loads_onto_the_card(cuda, tmp_path):
+    """A checkpoint saved from a CPU fit loads into ``device="auto"``: the
+    fitted arrays on the card, ``transform`` there within 1e-5 of the
+    CPU's (another GEMM summation order)."""
+    from torchdr_tpu_torch import PCA
+    from torchdr_tpu_torch.utils import load_estimator, save_estimator
+
+    X = np.random.default_rng(8).normal(size=(500, 12)).astype(np.float32)
+    model = PCA(n_components=3, device="cpu")
+    model.fit_transform(X)
+    save_estimator(model, str(tmp_path / "pca"))
+    fresh = load_estimator(PCA(n_components=3), str(tmp_path / "pca"))
+    assert fresh.device_.type == "cuda" and fresh.mean_.device.type == "cuda"
+    assert fresh.embedding_.device.type == "cuda"
+    Xt = torch.from_numpy(X).to(cuda)
+    got = fresh.transform(Xt)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - torch.from_numpy(model.transform(X))).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_device_trace_sees_k1_once_a_step(cuda, tmp_path):
+    """A UMAP fit under ``device_trace``: the trace holds one K1 kernel
+    event (``repulsion_kernel``) per launch the wrapper counted."""
+    import glob
+    import json
+
+    from torchdr_tpu_torch.utils import device_trace
+
+    rng = np.random.default_rng(9)
+    X = (rng.normal(scale=4.0, size=(4, 16))[rng.integers(0, 4, 2000)]
+         + rng.normal(size=(2000, 16))).astype(np.float32)
+    model = UMAP(random_state=0, max_iter=20)
+    before = fused_shared_repulsion.launches
+    with device_trace(str(tmp_path / "trace")):
+        model.fit_transform(X)
+    launches = fused_shared_repulsion.launches - before
+    (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"
+               and "repulsion_kernel" in e.get("name", "")]
+    assert launches == model.n_iter_ > 0
+    assert len(kernels) == launches

@@ -526,7 +526,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "eval/silhouette.py", "eval/kmeans_ari.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/knn.py", "parallel/sparse.py", "parallel/ivf.py",
                 "utils/manifold.py", "utils/encoders.py", "models/neighbor/cosne.py",
-                "ops/pq.py", "ops/loader.py", "ops/streaming.py", "utils/native_loader.py"):
+                "ops/pq.py", "ops/loader.py", "ops/streaming.py", "utils/native_loader.py",
+                "cli.py", "utils/checkpoint.py", "utils/profiling.py", "utils/visu.py",
+                "utils/__init__.py"):
         assert ROOT / "torchdr_tpu_torch" / new in files
     banned = ("jax", "jaxlib", "flax", "torchdr_tpu")
     for path in files:
@@ -535,21 +537,73 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             assert top not in banned, f"{path.relative_to(ROOT)} imports {mod}"
 
 
-# Names of the JAX package's ``__all__`` that wait for a ROADMAP item: none
-# since items 12c and 13.
-_WAITING: dict = {}
+# Names of the JAX package that the port replaces on purpose, each with its
+# counterparts (``module:attribute``) and the reason. No name waits for a
+# ROADMAP item any more.
+_BUILD = "torchdr_tpu_torch.ops.cuda.build"
+_REPLACED = {
+    ".utils": {
+        "to_jax": (("torchdr_tpu_torch.utils:to_torch",),
+                   "the port's arrays are torch tensors"),
+        "compile_cache_dir": ((f"{_BUILD}:BUILD_DIR",),
+                              "XLA's persistent cache has no use: nvcc is the only compiler, "
+                              "and its libraries are kept under _build/ by a hash of their "
+                              "source and flags"),
+        "enable_compile_cache": ((f"{_BUILD}:build_libraries",), "the same"),
+    },
+    ".parallel": {
+        "row_sharding": (("torchdr_tpu_torch.parallel:ShardedRows",
+                          "torchdr_tpu_torch.parallel:shard_rows"),
+                         "a NamedSharding has no torch meaning; rows are placed as pieces"),
+        "replicated": (("torchdr_tpu_torch.parallel:ShardedRows",
+                        "torchdr_tpu_torch.parallel:shard_rows",
+                        "torchdr_tpu_torch.parallel:replicate"),
+                       "the same; a replicated tensor is one copy per device"),
+    },
+}
 
 
-@pytest.mark.parametrize("module", ["", ".ops"])
+def _public_names(mod):
+    """``__all__``, or where a module has none, its public attributes that
+    are not modules."""
+    import types
+
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+@pytest.mark.parametrize("module", ["", ".ops", ".utils", ".parallel", ".eval", ".affinity",
+                                    ".models", ".models.neighbor", ".models.spectral"])
 def test_exports_match_the_jax_package(module):
-    """Every name of the JAX package's ``__all__`` (top level and ``ops``)
-    is exported by the port, but those listed as waiting for their item;
-    each exported name resolves, and none of the waiting ones is there."""
+    """Every public name of each JAX subpackage is exported by the port's,
+    but those the port replaces on purpose (``_REPLACED``), whose
+    counterparts are there instead; each name resolves."""
     import importlib
 
     jax_mod = importlib.import_module("torchdr_tpu" + module)
     port = importlib.import_module("torchdr_tpu_torch" + module)
-    missing = sorted(set(jax_mod.__all__) - set(port.__all__))
-    assert missing == sorted(n for n in missing if n in _WAITING), missing
-    assert not [n for n in port.__all__ if not hasattr(port, n)]
-    assert not [n for n in jax_mod.__all__ if n in _WAITING and hasattr(port, n)]
+    replaced = _REPLACED.get(module, {})
+    missing = sorted(_public_names(jax_mod) - _public_names(port))
+    assert missing == sorted(replaced), missing
+    assert not [n for n in _public_names(jax_mod) if n not in replaced and not hasattr(port, n)]
+    assert not [n for n in _public_names(port) if not hasattr(port, n)]
+    assert not [n for n in replaced if hasattr(port, n)]
+    for counterparts, reason in replaced.values():
+        assert reason
+        for target in counterparts:
+            mod_name, attr = target.split(":")
+            assert hasattr(importlib.import_module(mod_name), attr), target
+
+
+def test_neighbor_embedding_bases_resolve_from_the_models_packages():
+    from torchdr_tpu_torch.models import NegativeSamplingNeighborEmbedding, NeighborEmbedding
+    from torchdr_tpu_torch.models import neighbor
+    from torchdr_tpu_torch.models.neighbor.base import (
+        NegativeSamplingNeighborEmbedding as NSNE,
+        NeighborEmbedding as NE,
+    )
+
+    assert NeighborEmbedding is NE is neighbor.NeighborEmbedding
+    assert NegativeSamplingNeighborEmbedding is NSNE is neighbor.NegativeSamplingNeighborEmbedding

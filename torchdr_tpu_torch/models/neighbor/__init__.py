@@ -1,3 +1,4 @@
+from .base import NegativeSamplingNeighborEmbedding, NeighborEmbedding
 from .cosne import COSNE
 from .largevis import InfoTSNE, LargeVis
 from .pacmap import PACMAP
@@ -5,4 +6,7 @@ from .tsne import SNE, TSNE
 from .tsnekhorn import TSNEkhorn
 from .umap import UMAP
 
-__all__ = ["SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP", "COSNE"]
+__all__ = [
+    "NeighborEmbedding", "NegativeSamplingNeighborEmbedding",
+    "SNE", "TSNE", "UMAP", "LargeVis", "InfoTSNE", "TSNEkhorn", "PACMAP", "COSNE",
+]

@@ -20,10 +20,17 @@ torch meaning, and are left out.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+#: ``torchdr_tpu_torch.cli run --virtual-cpu-devices N`` sets this to N: a
+#: mesh built without ``devices`` is then N CPU devices, as ``jax.devices()``
+#: is N CPU devices under the JAX CLI's ``XLA_FLAGS``
+VIRTUAL_CPU_DEVICES_ENV = "TORCHDR_TPU_TORCH_VIRTUAL_CPU_DEVICES"
 
 
 class Mesh:
@@ -72,8 +79,9 @@ class MeshConfig:
     axis : str, default "data"
         Mesh axis name for row sharding.
     devices : sequence of devices, optional
-        Explicit device list (repeats allowed); default every visible CUDA
-        device, raising when there is none.
+        Explicit device list (repeats allowed); default N CPU devices when
+        the ``VIRTUAL_CPU_DEVICES_ENV`` variable holds N, else every visible
+        CUDA device, raising when there is none.
     """
 
     n_devices: Optional[int] = None
@@ -81,8 +89,11 @@ class MeshConfig:
     devices: Optional[Sequence] = None
 
     def build(self) -> Mesh:
+        virtual = int(os.environ.get(VIRTUAL_CPU_DEVICES_ENV) or 0)
         if self.devices is not None:
             devs = list(self.devices)
+        elif virtual > 0:
+            devs = ["cpu"] * virtual
         else:
             if not torch.cuda.is_available():
                 raise RuntimeError(
