@@ -128,11 +128,19 @@ Phases, in order; any failure exits non-zero:
     events of each hand kernel (by its ``__global__`` name) equal to its
     wrapper's launch count, with their traced device time; the four parts
     timed by ``utils.PhaseTimer``;
-13. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+13. the examples gallery: each script of ``torchdr_tpu_torch/examples/`` at
+    its full default size, in-process through its ``main([])`` (which raises
+    when one of its gates fails), every launch counter set to 0 just before
+    and read just after: K1 must launch on each UMAP script, K2 and K3 on
+    each t-SNE/SNE script, and no kernel elsewhere (``EXAMPLE_KERNELS``);
+    one JSON line a script (seconds, numbers, launches); then the runner
+    ``python -m torchdr_tpu_torch.examples --match basic_usage`` once in a
+    fresh process, its exit code and summary line checked;
+14. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-14. with ``--profile`` only: device time by kernel and the device's idle
+15. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
     and over 100 steps of each fit of phase 5 (torch.profiler).
 
@@ -147,6 +155,7 @@ and runs phase 9 alone (with the three fits without a mesh beside it). With
 UMAP and t-SNE fits of phase 4 beside it. With ``--tiers`` it builds K1
 and runs phase 11 alone (~7 min). With ``--api`` it builds K1, K2 and K3,
 fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
+``--examples`` it builds K1, K2 and K3 and runs phase 13 alone. With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -364,6 +373,28 @@ CLI_MESH_SCRIPT = """
 from torchdr_tpu_torch.parallel import make_mesh
 print("MESH", [str(d) for d in make_mesh().devices])
 """
+
+# The examples gallery (phase 13): every script of torchdr_tpu_torch/examples/
+# at its full default size, in-process through its main(), with the kernels
+# it must launch (every other counter must read 0), and the runner once in a
+# fresh process on the script EXAMPLE_RUNNER_MATCH names
+K2_K3 = ("rowlse_fwd", "rowlse_bwd")
+EXAMPLE_KERNELS = {
+    "affinities/demo_ea_adaptivity": (),
+    "affinities/single_vs_multi_device_umap_affinity": (),
+    "basics/basic_usage": ("fused_shared_repulsion", *K2_K3),
+    "basics/demo_ne_methods": ("fused_shared_repulsion", *K2_K3),
+    "basics/demo_pca_via_affinity_matcher": (),
+    "basics/demo_tsne_swiss_roll": K2_K3,
+    "basics/demo_tsne_vs_cosne": K2_K3,
+    "basics/incremental_pca": (),
+    "basics/parametric_umap": ("fused_shared_repulsion",),
+    "distributed/distributed_umap": ("fused_shared_repulsion",),
+    "distributed/knn_accuracy_benchmark": ("fused_shared_repulsion",),
+    "distributed/neighborhood_preservation_benchmark": ("fused_shared_repulsion",),
+    "single_cell/single_cell": K2_K3,
+}
+EXAMPLE_RUNNER_MATCH = "basic_usage"
 
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
@@ -614,6 +645,7 @@ def time_k1(torch, gen, a: float, b: float, first, worst: float) -> dict:
                 "launches": None,
                 "max_abs_err": None,
                 "ms": ms,
+                "graph_ms": device_ms,  # the call replayed from a CUDA graph
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
@@ -1131,6 +1163,7 @@ def time_k2_k3(torch, gen, worst) -> tuple:
                         "launches": None,
                         "max_abs_err": max(worst[which], err),
                         "ms": ms,
+                        "graph_ms": device_ms,  # the call replayed from a CUDA graph
                         "plain_ms": plain_ms,
                         "bound_ms": bound_ms,
                         "bound_by": bound_by,
@@ -1313,6 +1346,7 @@ def run_gather_path(torch, counters, times) -> list:
             "launches": launches[kernel.__name__],
             "max_abs_err": t["max_abs_err"],
             "ms": t["eager_ms"],  # median of GATHER_REPEATS, as the library call's
+            "graph_ms": t["graph_ms"],  # median of GATHER_REPEATS, replayed from a graph
             "plain_ms": t["plain_ms"],
             "bound_ms": rec["bound_ms"],  # from the rows this run's ids touch
             "bound_by": rec["bound_by"],
@@ -2166,6 +2200,70 @@ def run_api_path(torch, counters, X, labels, smi: str, umap=None, pumap=None) ->
     return out
 
 
+def example_numbers(out: dict) -> dict:
+    """The numbers a gallery script returns: each fit's scalars (its
+    embedding and labels left out), and the script's own scalars and
+    dicts of numbers."""
+    def scalars(d):
+        return {k: float(v) for k, v in d.items()
+                if isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, bool)}
+
+    nums = {name: scalars(fit) for name, fit in out.get("fits", {}).items()}
+    nums.update(scalars(out))
+    nums.update({k: v for k, v in out.items() if k != "fits" and isinstance(v, dict)})
+    return nums
+
+
+def run_examples_path(torch, counters) -> dict:
+    """Phase 13: each gallery script on the card at its full default size,
+    in-process through its ``main([])`` (which raises when one of its gates
+    fails), every launch counter set to 0 just before and read just after:
+    fails unless each kernel of ``EXAMPLE_KERNELS[script]`` launched and no
+    other did. Then the runner once in a fresh process. One JSON line a
+    script: its seconds, numbers and launches."""
+    import importlib
+
+    from torchdr_tpu_torch.examples.__main__ import find_examples, module_name
+
+    scripts = [rel[: -len(".py")] for rel in find_examples()]
+    if scripts != sorted(EXAMPLE_KERNELS):
+        raise AssertionError(f"examples: scripts {scripts}")
+    t_phase = time.perf_counter()
+    lines = {}
+    for script in scripts:
+        mod = importlib.import_module(module_name(script + ".py"))
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = mod.main([])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        line = {"example": script, "seconds": seconds, "numbers": example_numbers(out),
+                "launches": launches}
+        print("example " + json.dumps(line), flush=True)
+        for name, count in launches.items():
+            if (name in EXAMPLE_KERNELS[script]) != (count > 0):
+                raise AssertionError(f"example {script}: {name} launched {count} times")
+        for name, fit in out.get("fits", {}).items():
+            if not np.all(np.isfinite(fit["embedding"])):
+                raise AssertionError(f"example {script}: {name}'s embedding is not finite")
+        lines[script] = line
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchdr_tpu_torch.examples", "--match", EXAMPLE_RUNNER_MATCH],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    summary = proc.stdout.strip().splitlines()[-1:] or [""]
+    print(f"examples runner --match {EXAMPLE_RUNNER_MATCH}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; {proc.stdout.strip()}", flush=True)
+    if proc.returncode != 0 or summary[0] != "[examples] 1/1 passed":
+        raise AssertionError(f"examples runner: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    print(f"examples phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return lines
+
+
 def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
@@ -2352,12 +2450,13 @@ def main() -> int:
     engine_only = "--engine" in sys.argv[1:]
     tiers_only = "--tiers" in sys.argv[1:]
     api_only = "--api" in sys.argv[1:]
+    examples_only = "--examples" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
     elif rowlse_only:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
-    elif mesh_only or engine_only or api_only:
+    elif mesh_only or engine_only or api_only or examples_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only or tiers_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
@@ -2376,6 +2475,10 @@ def main() -> int:
         return 0
     if tiers_only:
         run_tiers_path(torch, counters, smi)
+        print(smi, flush=True)
+        return 0
+    if examples_only:
+        run_examples_path(torch, counters)
         print(smi, flush=True)
         return 0
     from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
@@ -2461,6 +2564,13 @@ def main() -> int:
     # parametric UMAP loaded onto the card, device traces of two fits
     run_api_path(torch, counters, X, labels, smi, umap=umap_model,
                  pumap=engine["parametric UMAP model"])
+
+    # 13. the examples gallery: every script at its full size, and the runner
+    gallery = run_examples_path(torch, counters)
+    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd")):
+        rec["gallery_launches"] = {script: line["launches"][name]
+                                   for script, line in gallery.items()
+                                   if line["launches"][name]}
 
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn

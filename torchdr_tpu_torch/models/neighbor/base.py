@@ -28,6 +28,8 @@ class NeighborEmbedding(AffinityMatcher):
     def __init__(
         self,
         affinity_in: Union[Affinity, str],
+        affinity_out: Optional[Affinity] = None,
+        kwargs_affinity_out: Optional[Dict] = None,
         n_components: int = 2,
         lr: Union[float, str] = 1e0,
         optimizer: str = "SGD",
@@ -49,6 +51,8 @@ class NeighborEmbedding(AffinityMatcher):
     ):
         super().__init__(
             affinity_in=affinity_in,
+            affinity_out=affinity_out,
+            kwargs_affinity_out=kwargs_affinity_out,
             n_components=n_components,
             optimizer=optimizer,
             optimizer_kwargs=optimizer_kwargs,
