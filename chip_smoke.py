@@ -136,11 +136,27 @@ Phases, in order; any failure exits non-zero:
     one JSON line a script (seconds, numbers, launches); then the runner
     ``python -m torchdr_tpu_torch.examples --match basic_usage`` once in a
     fresh process, its exit code and summary line checked;
-14. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
+14. the benchmarks: (a) after ``torch.set_float32_matmul_precision("high")``,
+    ``knn_graph`` (k = 15) on the 60,000 x 784 rows gives the ids of a call
+    without it, distances within 1e-6 relative, and the user's "high" reads
+    back after the call (the same search outside the port's entry point, at
+    the user's TF32, reported beside it); (b) the package without
+    ``_build/`` copied into a read-only temporary directory, imported by a
+    fresh process with a temporary HOME (as the user nobody when this runs
+    as root), builds K1 into ``~/.cache/torchdr_tpu_torch/build`` and
+    launches it against its plain version, with nothing written inside the
+    copy; (c) ``python -m torchdr_tpu_torch.cli bench``, the headline 1M x
+    128 IVF kNN, its JSON line printed and its recall@15 held to 0.95; (d)
+    ``benchmarks.knn_benchmark`` at its defaults (100,000 x 128; every tier
+    at recall 0.999 or more); (e) ``benchmarks.umap_single_cell`` at its
+    defaults (200,000 x 50, 500 steps), plain and ``--distributed``, every
+    launch counter set to 0 just before and read just after: K1 once a
+    step, every other kernel 0, 10-NN accuracy at least 0.9;
+15. with ``--sass`` only: the registers of the d = 2 and d = 3 kernels (d = 8
    for the gathers; ``cuobjdump -res-usage``) and the instruction counts of
    those kernels' inner loops, per tensor-core product where they make any
    (``cuobjdump -sass``);
-15. with ``--profile`` only: device time by kernel and the device's idle
+16. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
     and over 100 steps of each fit of phase 5 (torch.profiler).
 
@@ -156,6 +172,7 @@ UMAP and t-SNE fits of phase 4 beside it. With ``--tiers`` it builds K1
 and runs phase 11 alone (~7 min). With ``--api`` it builds K1, K2 and K3,
 fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
 ``--examples`` it builds K1, K2 and K3 and runs phase 13 alone. With
+``--bench`` it builds K1 and runs phase 14 alone. With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -395,6 +412,45 @@ EXAMPLE_KERNELS = {
     "single_cell/single_cell": K2_K3,
 }
 EXAMPLE_RUNNER_MATCH = "basic_usage"
+
+# The benchmarks phase (14). (a) the float32 grams: knn_graph on phase 4's
+# rows after the user's set_float32_matmul_precision("high") gives the ids of
+# a call without it, with distances within F1_DIST_RTOL relative (a TF32
+# gram keeps ~3 digits: the same search outside the port's entry point is
+# reported beside it); (b) an installed, read-only copy of the package (the
+# files a wheel ships: the package without _build/) builds K1 into
+# ~/.cache/torchdr_tpu_torch/build and launches it against its plain version;
+# (c) the headline bench through the CLI, held to the recall@15 bar of
+# PERF.md section 2; (d) the kNN benchmark at its defaults, every tier
+# computing the exact float32 graph in the port; (e) the single-cell UMAP
+# benchmark at its defaults, plain and --distributed, K1 once a step and no
+# other kernel, held to the 10-NN accuracy of run_fit.
+F1_K, F1_DIST_RTOL = 15, 1e-6
+BENCH_RECALL_MIN, KNN_BENCH_RECALL_MIN, SINGLE_CELL_MIN_ACC = 0.95, 0.999, 0.9
+NOBODY = 65534  # the uid and gid the read-only copy runs under when this runs as root
+F2_CHILD = """
+import json, os, torch
+import torchdr_tpu_torch
+from torchdr_tpu_torch.models.neighbor.umap import find_ab_params
+from torchdr_tpu_torch.ops.cuda.build import build_dir
+from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion, shared_repulsion_plain
+
+g = torch.Generator(device="cuda")
+g.manual_seed(0)
+n, S = 60_000, 512
+Z = 3.0 * torch.randn((n, 2), generator=g, device="cuda")
+neg = torch.randint(0, n, (S,), generator=g, device="cuda")
+w = torch.randint(0, 600, (n,), generator=g, device="cuda").float() / S
+a, b = find_ab_params(1.0, 0.1)
+got = fused_shared_repulsion(Z, neg, w, a, b, 1e-3)
+launches = fused_shared_repulsion.launches
+plain = shared_repulsion_plain(Z, neg, w, a, b, 1e-3)
+torch.cuda.synchronize()
+print(json.dumps({"package": os.path.dirname(torchdr_tpu_torch.__file__),
+                  "build_dir": str(build_dir()), "launches": launches,
+                  "max_abs_err": float((got - plain).abs().max()),
+                  "finite": bool(torch.isfinite(got).all())}))
+"""
 
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
@@ -2264,6 +2320,152 @@ def run_examples_path(torch, counters) -> dict:
     return lines
 
 
+def check_float32_grams(torch, X) -> dict:
+    """Phase 14 (a): ``knn_graph`` on the rows after the user's
+    ``set_float32_matmul_precision("high")``: the ids of a call without it,
+    distances within F1_DIST_RTOL, and the user's "high" back after the call.
+    The same search outside the port's entry point (its undecorated body,
+    where the user's TF32 applies) is reported beside it."""
+    from torchdr_tpu_torch import knn_graph
+
+    Xt = torch.from_numpy(X).cuda()
+    caller = torch.get_float32_matmul_precision()
+    d0, i0 = knn_graph(Xt, k=F1_K)
+    torch.set_float32_matmul_precision("high")
+    try:
+        d1, i1 = knn_graph(Xt, k=F1_K)
+        after = torch.get_float32_matmul_precision()
+        d_tf32, i_tf32 = knn_graph.__wrapped__(Xt, k=F1_K)
+    finally:
+        torch.set_float32_matmul_precision(caller)
+    torch.cuda.synchronize()
+    rel = float(((d1 - d0).abs() / d0.abs().clamp_min(1e-30)).max())
+    rec = {"rows": Xt.shape[0], "d": Xt.shape[1], "k": F1_K,
+           "ids_equal": bool(torch.equal(i0, i1)), "max_rel_dist_diff": rel,
+           "precision_after_call": after,
+           "tf32_rows_with_other_ids": float((i_tf32 != i0).any(1).float().mean()),
+           "tf32_max_rel_dist_diff": float(((d_tf32 - d0).abs() / d0.abs().clamp_min(1e-30)).max())}
+    print("float32 grams " + json.dumps(rec), flush=True)
+    if not rec["ids_equal"] or rel > F1_DIST_RTOL or after != "high":
+        raise AssertionError(f"float32 grams: {rec}")
+    return rec
+
+
+def check_installed_build(torch) -> dict:
+    """Phase 14 (b): the package without ``_build/`` (the files a wheel
+    ships) copied into a read-only directory, imported by a fresh process
+    whose HOME is a temporary directory, builds K1 there and launches it
+    against its plain version: the library must land in
+    ``~/.cache/torchdr_tpu_torch/build`` and nothing may be written inside
+    the copy. Root writes through any file mode, so as root the process runs
+    as the user ``NOBODY``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(os.path.dirname(os.path.abspath(__file__)))
+    tmp = Path(tempfile.mkdtemp())
+    site, home = tmp / "site", tmp / "home"
+    try:
+        shutil.copytree(root / "torchdr_tpu_torch", site / "torchdr_tpu_torch",
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        (home / "tmp").mkdir(parents=True)
+        before = sorted(str(p.relative_to(site)) for p in site.rglob("*"))
+        for p in [site, *site.rglob("*")]:
+            p.chmod(0o555 if p.is_dir() else 0o444)
+        run_as = {}
+        if os.geteuid() == 0:
+            tmp.chmod(0o755)
+            for p in [home, *home.rglob("*")]:
+                os.chown(p, NOBODY, NOBODY)
+            run_as = {"user": NOBODY, "group": NOBODY, "extra_groups": []}
+        env = dict(os.environ, HOME=str(home), TMPDIR=str(home / "tmp"), PYTHONPATH=str(site),
+                   PYTHONDONTWRITEBYTECODE="1")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", F2_CHILD], cwd=str(home), env=env,
+                              capture_output=True, text=True, timeout=600, **run_as)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"installed build: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        cache = home / ".cache" / "torchdr_tpu_torch" / "build"
+        libs = sorted(p.name for p in cache.glob("*.so")) if cache.is_dir() else []
+        after = sorted(str(p.relative_to(site)) for p in site.rglob("*"))
+        rec = {**child, "seconds": seconds, "uid": NOBODY if run_as else os.geteuid(),
+               "cache_libraries": libs, "copy_unchanged": after == before,
+               "files_in_copy": len(after)}
+        print("installed build " + json.dumps(rec), flush=True)
+        if not (child["package"] == str(site / "torchdr_tpu_torch")
+                and child["build_dir"] == str(cache) and child["launches"] == 1
+                and child["finite"] and child["max_abs_err"] <= TOL_K1
+                and [n for n in libs if n.startswith("libumap_repulsion-")] and rec["copy_unchanged"]):
+            raise AssertionError(f"installed build: {rec}")
+        return rec
+    finally:
+        for p in [site, *site.rglob("*")] if site.exists() else []:
+            p.chmod(0o755)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_bench_path(torch, counters, X) -> dict:
+    """Phase 14: the float32 grams (a), the installed build (b), then the
+    port's benchmarks at their defaults: the headline bench through the CLI
+    in a fresh process (c), the kNN benchmark (d) and the single-cell UMAP
+    benchmark plain and ``--distributed`` (e), each fit with every launch
+    counter set to 0 just before and read just after."""
+    from torchdr_tpu_torch.benchmarks import knn_benchmark, umap_single_cell
+
+    t_phase = time.perf_counter()
+    out = {"float32_grams": check_float32_grams(torch, X),
+           "installed_build": check_installed_build(torch)}
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torchdr_tpu_torch.cli", "bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=900)
+    print(f"cli bench: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s; "
+          f"{proc.stderr.strip().splitlines()[-1:]}", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli bench: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("bench " + json.dumps(bench), flush=True)
+    if not bench["recall"] >= BENCH_RECALL_MIN:
+        raise AssertionError(f"bench: recall@15 {bench['recall']} < {BENCH_RECALL_MIN}")
+    out["bench"] = bench
+
+    knn = knn_benchmark.main([])
+    out["knn_benchmark"] = {label: {"seconds": r["seconds"], "recall": r["recall"]}
+                            for label, r in knn.items()}
+    print("knn benchmark " + json.dumps(out["knn_benchmark"]), flush=True)
+    low = {label: r["recall"] for label, r in knn.items() if not r["recall"] >= KNN_BENCH_RECALL_MIN}
+    if low:
+        raise AssertionError(f"knn benchmark: recall {low} < {KNN_BENCH_RECALL_MIN}")
+
+    for label, argv in (("umap_single_cell", []), ("umap_single_cell --distributed",
+                                                   ["--distributed"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters:
+            fn.launches = 0
+        res = umap_single_cell.main(argv)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        Zt = torch.from_numpy(res["embedding"]).cuda()
+        acc = knn_label_accuracy(torch, Zt, torch.from_numpy(res["labels"]).cuda())
+        rec = {"n": res["n"], "d": res["d"], "steps": res["iters"], "seconds": res["seconds"],
+               "silhouette": res["silhouette"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+               "knn10_label_acc": acc}
+        print(f"{label} " + json.dumps(rec), flush=True)
+        want = {name: (res["iters"] if name == "fused_shared_repulsion" else 0) for name in launches}
+        if launches != want or not np.all(np.isfinite(res["embedding"])):
+            raise AssertionError(f"{label}: launches {launches} (want {want}) or a bad embedding")
+        if acc < SINGLE_CELL_MIN_ACC:
+            raise AssertionError(f"{label}: 10-NN label accuracy {acc} < {SINGLE_CELL_MIN_ACC}")
+        out[label] = rec
+    print(f"benchmarks phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
@@ -2415,7 +2617,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run.", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import torchdr_tpu_torch  # noqa: F401  (sets TF32 off)
     from torchdr_tpu_torch import SNE, TSNE, UMAP
     from torchdr_tpu_torch.models.neighbor.umap import find_ab_params
     from torchdr_tpu_torch.ops.cuda.build import build_libraries
@@ -2451,6 +2652,7 @@ def main() -> int:
     tiers_only = "--tiers" in sys.argv[1:]
     api_only = "--api" in sys.argv[1:]
     examples_only = "--examples" in sys.argv[1:]
+    bench_only = "--bench" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
@@ -2458,7 +2660,7 @@ def main() -> int:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
     elif mesh_only or engine_only or api_only or examples_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
-    elif k1_only or gather_only or ivf_only or tiers_only:
+    elif k1_only or gather_only or ivf_only or tiers_only or bench_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
         libs = build_libraries()
@@ -2486,6 +2688,10 @@ def main() -> int:
     X, labels = (None, None) if rowlse_only else make_clustered(N, D_IN, N_CLUSTERS, seed=SEED)
     if ne_only:
         run_ne_path(torch, counters, X, labels)
+        print(smi, flush=True)
+        return 0
+    if bench_only:
+        run_bench_path(torch, counters, X)
         print(smi, flush=True)
         return 0
     if spectral_only:
@@ -2571,6 +2777,12 @@ def main() -> int:
         rec["gallery_launches"] = {script: line["launches"][name]
                                    for script, line in gallery.items()
                                    if line["launches"][name]}
+
+    # 14. the repaired float32 grams and installed build, and the port's
+    # benchmarks: the headline bench, the kNN and single-cell UMAP benchmarks
+    benches = run_bench_path(torch, counters, X)
+    k1["bench_launches"] = {label: benches[label]["launches"]["fused_shared_repulsion"]
+                            for label in ("umap_single_cell", "umap_single_cell --distributed")}
 
     if "--profile" in sys.argv[1:]:
         from torchdr_tpu_torch import PACMAP, InfoTSNE, LargeVis, TSNEkhorn

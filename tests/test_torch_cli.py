@@ -3,10 +3,12 @@ counterpart of ``tests/test_cli.py``, and the mesh it configures.
 
 Three commands run as a user runs them (``python -m torchdr_tpu_torch.cli``
 in a fresh process, ~3 s each for torch's import): ``info``, ``run
---virtual-cpu-devices 4`` and ``bench`` without a path, which must not
-import JAX. The others call ``main`` in this process.
+--virtual-cpu-devices 4`` and ``bench`` without a path, which runs the
+port's headline benchmark and must not import JAX. The others call
+``main`` in this process.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -54,11 +56,19 @@ def test_run_with_virtual_cpu_devices_builds_a_cpu_mesh(tmp_path):
 
 
 def test_bench_without_a_path_returns_1_and_never_imports_jax():
-    out = _cli("bench", importtime=True)
+    """``bench`` without ``--path`` runs the port's headline benchmark
+    (``python -m torchdr_tpu_torch.benchmarks.bench``), never the repository's
+    JAX ``bench.py``, and passes it the arguments it does not know: here a
+    device that fails its child, so it prints the failure line and exits 1.
+    The CLI's process imports no JAX."""
+    out = _cli("bench", "--n", "64", "--device", "no-such-device", importtime=True)
     assert out.returncode == 1
-    assert "no bench script yet; pass --path" in out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "metric": "knn_1000000x128_k15_ivf_search_seconds", "value": -1.0, "unit": "s",
+        "vs_baseline": 0.0}
+    assert "[bench] child failed" in out.stderr and "no-such-device" in out.stderr
     imported = re.findall(r"^import time:[^|]*\|[^|]*\|\s*(\S+)", out.stderr, re.M)
-    assert "torchdr_tpu_torch" in imported
+    assert "torchdr_tpu_torch.benchmarks" in imported  # runpy runs the module itself
     assert not [m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "torchdr_tpu")]
 
 

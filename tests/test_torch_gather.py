@@ -316,7 +316,7 @@ def test_library_hash_covers_the_source_and_flags(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// two\n")
     third = build.library_path("k")
     assert len({first, second, third}) == 3
-    assert first.parent == build.BUILD_DIR and first.name.startswith("libk-")
+    assert first.parent == build.build_dir() and first.name.startswith("libk-")
 
 
 def test_load_function_names_its_entry_point():

@@ -545,10 +545,11 @@ _REPLACED = {
     ".utils": {
         "to_jax": (("torchdr_tpu_torch.utils:to_torch",),
                    "the port's arrays are torch tensors"),
-        "compile_cache_dir": ((f"{_BUILD}:BUILD_DIR",),
+        "compile_cache_dir": ((f"{_BUILD}:build_dir",),
                               "XLA's persistent cache has no use: nvcc is the only compiler, "
-                              "and its libraries are kept under _build/ by a hash of their "
-                              "source and flags"),
+                              "and its libraries are kept by a hash of their source and flags "
+                              "under the package's _build/ where it is writable, else under "
+                              "~/.cache/torchdr_tpu_torch/build"),
         "enable_compile_cache": ((f"{_BUILD}:build_libraries",), "the same"),
     },
     ".parallel": {

@@ -8,18 +8,16 @@ Device: every estimator takes ``device``. ``"auto"`` means ``cuda`` and
 raises when no card is present; only an explicit ``device="cpu"`` runs on
 the CPU, where each kernel wrapper takes its plain PyTorch version.
 
-Precision: everything is float32. Importing this package sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``: a TF32 distance gram keeps
-about three decimal digits and flips neighbour ranks in the kNN graph.
+Precision: everything is float32, and every public entry point (a fit,
+``transform``, an affinity's call, the kNN, IVF, k-means and PQ functions,
+``eval``) computes its products at full float32 whatever the caller set
+with ``torch.set_float32_matmul_precision``, and gives that setting back on
+return (``utils.wrappers.full_float32``): a TF32 distance gram keeps about
+three decimal digits and flips neighbour ranks in the kNN graph. Importing
+the package changes no global setting.
 """
 
-import torch
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
-from .affinity import (  # noqa: E402
+from .affinity import (
     Affinity,
     DoublyStochasticQuadraticAffinity,
     EntropicAffinity,
@@ -36,9 +34,9 @@ from .affinity import (  # noqa: E402
     SymmetricEntropicAffinity,
     UMAPAffinity,
 )
-from .affinity_matcher import AffinityMatcher  # noqa: E402
-from .base import DRModule  # noqa: E402
-from .eval import (  # noqa: E402
+from .affinity_matcher import AffinityMatcher
+from .base import DRModule
+from .eval import (
     adjusted_rand_index,
     kmeans_ari,
     knn_label_accuracy,
@@ -48,7 +46,7 @@ from .eval import (  # noqa: E402
     silhouette_samples,
     silhouette_score,
 )
-from .models.neighbor import (  # noqa: E402
+from .models.neighbor import (
     COSNE,
     PACMAP,
     SNE,
@@ -58,34 +56,34 @@ from .models.neighbor import (  # noqa: E402
     LargeVis,
     TSNEkhorn,
 )
-from .models.neighbor.base import (  # noqa: E402
+from .models.neighbor.base import (
     NegativeSamplingNeighborEmbedding,
     NeighborEmbedding,
 )
-from .models.spectral import (  # noqa: E402
+from .models.spectral import (
     PCA,
     PHATE,
     ExactIncrementalPCA,
     IncrementalPCA,
     KernelPCA,
 )
-from .ops.distance import (  # noqa: E402
+from .ops.distance import (
     knn_graph,
     knn_graph_host_chunked,
     pairwise_distances,
     pairwise_distances_indexed,
 )
-from .ops.ivf import ivf_build, ivf_build_from_batches, ivf_knn, ivf_knn_queries  # noqa: E402
-from .ops.kmeans import kmeans_fit  # noqa: E402
-from .ops.knn_config import EXACT, FAST, IVF, KnnConfig  # noqa: E402
-from .ops.loader import (  # noqa: E402
+from .ops.ivf import ivf_build, ivf_build_from_batches, ivf_knn, ivf_knn_queries
+from .ops.kmeans import kmeans_fit
+from .ops.knn_config import EXACT, FAST, IVF, KnnConfig
+from .ops.loader import (
     BatchSource,
     get_loader_metadata,
     validate_deterministic_loader,
 )
-from .ops.pq import pq_encode, pq_knn, pq_search, pq_train  # noqa: E402
-from .ops.streaming import knn_graph_from_batches, knn_graph_streaming  # noqa: E402
-from .ops.root_search import binary_search, false_position  # noqa: E402
+from .ops.pq import pq_encode, pq_knn, pq_search, pq_train
+from .ops.streaming import knn_graph_from_batches, knn_graph_streaming
+from .ops.root_search import binary_search, false_position
 
 __all__ = [
     "Affinity",

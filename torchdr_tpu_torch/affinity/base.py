@@ -28,7 +28,7 @@ from ..parallel.ivf import ivf_knn_sharded
 from ..parallel.knn import knn_graph_sharded
 from ..parallel.mesh import check_mesh
 from ..utils.logger import get_logger, log_phase
-from ..utils.wrappers import to_torch
+from ..utils.wrappers import full_float32, to_torch
 
 
 class Affinity(BaseEstimator, ABC):
@@ -92,6 +92,7 @@ class Affinity(BaseEstimator, ABC):
             if name.endswith("_") and not name.startswith("_"):
                 delattr(self, name)
 
+    @full_float32()
     def __call__(self, X, **kwargs):
         X, _ = to_torch(X, device=self._device())
         return self._compute_affinity(X, **kwargs)
@@ -157,6 +158,7 @@ class Affinity(BaseEstimator, ABC):
 class LogAffinity(Affinity, ABC):
     """Affinity computed in log domain; ``__call__(X, log=True)`` returns logs."""
 
+    @full_float32()
     def __call__(self, X, log: bool = False, **kwargs):
         X, _ = to_torch(X, device=self._device())
         log_aff = self._compute_log_affinity(X, **kwargs)
@@ -195,6 +197,7 @@ class SparseAffinity(Affinity, ABC):
         )
         self.sparsity = bool(sparsity)
 
+    @full_float32()
     def __call__(self, X, return_indices: bool = True, **kwargs):
         X, _ = to_torch(X, device=self._device())
         return self._compute_sparse_affinity(X, return_indices=return_indices, **kwargs)
@@ -212,6 +215,7 @@ class SparseLogAffinity(SparseAffinity, ABC):
     hold 0); ``log=True`` returns the log values.
     """
 
+    @full_float32()
     def __call__(self, X, return_indices: bool = True, log: bool = False, **kwargs):
         X, _ = to_torch(X, device=self._device())
         result = self._compute_sparse_log_affinity(X, return_indices=return_indices, **kwargs)

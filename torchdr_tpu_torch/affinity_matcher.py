@@ -59,7 +59,7 @@ from .utils.logger import log_phase
 from .utils.manifold import poincare_expmap0
 from .utils.optim import make_optimizer, normalize_optimizer_kwargs
 from .utils.schedulers import make_scheduler
-from .utils.wrappers import restore_format, to_torch
+from .utils.wrappers import full_float32, restore_format, to_torch
 
 LOSS_DICT = {"square_loss": square_loss, "cross_entropy_loss": cross_entropy_loss}
 
@@ -178,12 +178,14 @@ class AffinityMatcher(DRModule):
 
     # --- fit ---
 
+    @full_float32()
     def fit_transform(self, X, y: Optional[Any] = None):
         # rows of a precomputed affinity are not deduplicated
         if isinstance(self.affinity_in, str):
             self.process_duplicates = False
         return super().fit_transform(X, y)
 
+    @full_float32()
     def transform(self, X=None):
         """The training embedding, or, with an encoder, its output on new rows
         at the fitted weights, in the caller's format."""

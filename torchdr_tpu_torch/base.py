@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .utils.logger import get_logger
-from .utils.wrappers import deduplicate, restore_format, to_host, validate_2d
+from .utils.wrappers import deduplicate, full_float32, restore_format, to_host, validate_2d
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -151,10 +151,12 @@ class DRModule(BaseEstimator, ABC):
 
     # --- Public API ---
 
+    @full_float32()
     def fit(self, X, y: Optional[Any] = None) -> "DRModule":
         self.fit_transform(X, y=y)
         return self
 
+    @full_float32()
     def fit_transform(self, X, y: Optional[Any] = None):
         """Fit the model and return the embedding.
 
@@ -183,6 +185,7 @@ class DRModule(BaseEstimator, ABC):
         self.is_fitted_ = True
         return restore_format(self.embedding_, fmt)
 
+    @full_float32()
     def transform(self, X=None):
         """Return the training embedding."""
         if not self.is_fitted_:

@@ -104,8 +104,6 @@ def main(cases=CASES, blocks=(256, "chunk")) -> list:
 
     if not torch.cuda.is_available():
         raise RuntimeError("ivf_recall: needs a CUDA device")
-    import torchdr_tpu_torch  # noqa: F401  (sets TF32 off)
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     results = []

@@ -144,8 +144,13 @@ def main(argv=None) -> int:
             tiers.append(argv.pop(0))
         else:
             raise SystemExit(f"unknown argument {arg!r}")
-    import torchdr_tpu_torch  # noqa: F401  (TF32 off)
+    from torchdr_tpu_torch.utils.wrappers import full_float32
 
+    with full_float32():  # the search's internals, called below its entry point
+        return _profile(blocks, n, tiers, queries)
+
+
+def _profile(blocks: int, n: int, tiers, queries) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     X = make_tiers_data(n)

@@ -5,7 +5,10 @@
 
 One process drives every local card, as the JAX package's runner drives
 its chips: ``run`` configures the mesh and executes the user's script,
-``info`` reports the devices, ``bench`` runs a benchmark script.
+``info`` reports the devices, ``bench`` runs a benchmark script: by
+default the port's headline benchmark, ``python -m
+torchdr_tpu_torch.benchmarks.bench`` (never the repository's JAX
+``bench.py``), with the arguments that follow it.
 
 ``run --virtual-cpu-devices N`` makes a mesh built without devices
 (``make_mesh()``) N CPU devices, through ``parallel.mesh``'s
@@ -22,6 +25,8 @@ import argparse
 import os
 import runpy
 import sys
+
+BENCH_MODULE = "torchdr_tpu_torch.benchmarks.bench"
 
 
 def main(argv=None):
@@ -49,14 +54,18 @@ def main(argv=None):
 
     sub.add_parser("info", help="Print torch, CUDA and device information.")
 
-    bench_p = sub.add_parser("bench", help="Run a benchmark script.")
+    bench_p = sub.add_parser(
+        "bench", help="Run a benchmark script; the arguments it does not know are the script's.")
     bench_p.add_argument(
         "--path",
         default=None,
-        help="Path to the bench script (the port has no default one yet).",
+        help=f"Path to a bench script (default: the module {BENCH_MODULE}).",
     )
 
-    args = parser.parse_args(argv)
+    # the arguments that ``bench`` does not know are its script's
+    args, bench_args = parser.parse_known_args(argv)
+    if bench_args and args.command != "bench":
+        parser.error(f"unrecognized arguments: {' '.join(bench_args)}")
 
     if args.command == "info":
         import torch
@@ -68,15 +77,16 @@ def main(argv=None):
         return 0
 
     if args.command == "bench":
+        if args.path is None:
+            sys.argv = [BENCH_MODULE] + bench_args
+            runpy.run_module(BENCH_MODULE, run_name="__main__", alter_sys=True)
+            return 0
         # An explicit path is authoritative: do not fall back silently.
-        if args.path and os.path.isfile(args.path):
-            sys.argv = [args.path]
+        if os.path.isfile(args.path):
+            sys.argv = [args.path] + bench_args
             runpy.run_path(args.path, run_name="__main__")
             return 0
-        if args.path:
-            print(f"{args.path} not found; pass --path", file=sys.stderr)
-        else:
-            print("the port has no bench script yet; pass --path", file=sys.stderr)
+        print(f"{args.path} not found; pass --path", file=sys.stderr)
         return 1
 
     if args.command == "run":

@@ -14,9 +14,10 @@ import torch
 
 from ..base import resolve_device
 from ..ops.kmeans import kmeans_fit
-from ..utils.wrappers import to_torch
+from ..utils.wrappers import full_float32, to_torch
 
 
+@full_float32()
 def adjusted_rand_index(labels_true, labels_pred) -> float:
     """ARI from the contingency table (Hubert & Arabie 1985)."""
     lt = np.asarray(labels_true)
@@ -41,6 +42,7 @@ def adjusted_rand_index(labels_true, labels_pred) -> float:
     return float((sum_comb - expected) / denom)
 
 
+@full_float32()
 def kmeans_ari(
     X,
     labels,

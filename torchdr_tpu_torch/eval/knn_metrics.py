@@ -15,7 +15,7 @@ from ..base import resolve_device
 from ..ops.distance import knn_graph
 from ..parallel.knn import knn_graph_sharded
 from ..parallel.mesh import check_mesh
-from ..utils.wrappers import to_torch
+from ..utils.wrappers import full_float32, to_torch
 
 
 def _knn_indices(X, k, metric, exclude_diag, mesh):
@@ -36,6 +36,7 @@ def _overlap(idx_a: torch.Tensor, idx_b: torch.Tensor) -> torch.Tensor:
     return torch.any(idx_a[:, :, None] == idx_b[:, None, :], dim=2).sum(dim=1)
 
 
+@full_float32()
 def knn_label_accuracy(
     X,
     labels,
@@ -54,6 +55,7 @@ def knn_label_accuracy(
     return per_sample if return_per_sample else float(torch.mean(per_sample))
 
 
+@full_float32()
 def neighborhood_preservation(
     X,
     Z,
@@ -74,6 +76,7 @@ def neighborhood_preservation(
     return per_sample if return_per_sample else float(torch.mean(per_sample))
 
 
+@full_float32()
 def neighborhood_preservation_sampled(
     X,
     Z,
@@ -105,6 +108,7 @@ def neighborhood_preservation_sampled(
     return float(torch.mean(member.to(torch.float32) / K))
 
 
+@full_float32()
 def knn_recall(indices_pred, indices_true, return_per_sample: bool = False,
                device: str = "auto"):
     """Recall@k of a predicted kNN index set against the true one."""

@@ -14,7 +14,7 @@ import torch
 
 from ..base import resolve_device
 from ..ops.metrics import pairwise_block
-from ..utils.wrappers import to_torch
+from ..utils.wrappers import full_float32, to_torch
 from .knn_metrics import _as_index_tensor
 
 
@@ -43,6 +43,7 @@ def _silhouette_samples(X, labels, weights, metric: str, n_clusters: int,
     return torch.where(own_mass - w <= 0, torch.zeros_like(sil), sil)
 
 
+@full_float32()
 def silhouette_samples(
     X, labels, weights=None, metric: str = "sqeuclidean", device: str = "auto"
 ):
@@ -59,6 +60,7 @@ def silhouette_samples(
     return _silhouette_samples(X, inv.reshape(-1), w, metric, int(uniq.shape[0]))
 
 
+@full_float32()
 def silhouette_score(
     X,
     labels,

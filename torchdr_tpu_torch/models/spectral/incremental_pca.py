@@ -7,12 +7,13 @@ split of the work between the host and the device:
   the mean-correction row of each update) are O(batch · d) and run on the
   host in numpy float64, as in the JAX package; ``mean_`` and ``var_`` are
   host float64 arrays;
-- the heavy per-batch products run on the estimator's device in float32
-  (TF32 off): the SVD of IncrementalPCA's augmented matrix, the Σx and XᵀX
-  of ExactIncrementalPCA (summed on the host in float64, then one host
-  float64 ``eigh``), and the projection of every batch. The JAX package
-  projects on the host in numpy; the port keeps the fitted components on
-  the device and projects there.
+- the heavy per-batch products run on the estimator's device in full
+  float32 (the public methods hold ``full_float32``): the SVD of
+  IncrementalPCA's augmented matrix, the Σx and XᵀX of ExactIncrementalPCA
+  (summed on the host in float64, then one host float64 ``eigh``), and the
+  projection of every batch. The JAX package projects on the host in
+  numpy; the port keeps the fitted components on the device and projects
+  there.
 
 Input: an array or tensor (taken in ``batch_size`` row slices), or any
 iterable of row batches (arrays, tensors, or ``(x, y)`` pairs as a
@@ -30,7 +31,7 @@ import torch
 from ...base import DRModule
 from ...ops.reductions import svd, svd_flip
 from ...parallel.mesh import check_mesh, shard_rows
-from ...utils.wrappers import restore_format, to_torch
+from ...utils.wrappers import full_float32, restore_format, to_torch
 
 
 def _host(batch) -> np.ndarray:
@@ -134,6 +135,7 @@ class IncrementalPCA(DRModule):
             ) / new_count
         return updated_mean, updated_var, new_count
 
+    @full_float32()
     def partial_fit(self, X) -> "IncrementalPCA":
         """Update the model with one batch."""
         device = self._resolve_device()
@@ -200,6 +202,7 @@ class IncrementalPCA(DRModule):
     def _fit_transform(self, X: torch.Tensor, y: Optional[Any] = None) -> torch.Tensor:
         return self._fit_transform_any(X)
 
+    @full_float32()
     def fit_transform(self, X, y=None):
         """Fit on an array, a tensor or an iterable of batches and return
         the projection of every row (a tensor on the device for tensor
@@ -227,6 +230,7 @@ class IncrementalPCA(DRModule):
         mean = torch.from_numpy(np.asarray(self.mean_, np.float32)).to(self.device_)
         return (X - mean) @ self.components_.T
 
+    @full_float32()
     def transform(self, X=None):
         if X is None:
             return super().transform(None)
@@ -293,6 +297,7 @@ class ExactIncrementalPCA(DRModule):
             s, g = (s_r, g_r) if s is None else (s + s_r, g + g_r)
         return s, g
 
+    @full_float32()
     def fit(self, X, y=None):
         self.fit_transform(X, y)
         return self
@@ -328,6 +333,7 @@ class ExactIncrementalPCA(DRModule):
         self.is_fitted_ = True
         return self
 
+    @full_float32()
     def fit_transform(self, X, y=None):
         """Both passes; returns the projection of every row (a tensor on the
         device for tensor input, else a numpy array)."""
@@ -346,6 +352,7 @@ class ExactIncrementalPCA(DRModule):
         X, _ = to_torch(Xb, device=self.device_)
         return (X - self.mean_) @ self.components_.T
 
+    @full_float32()
     def transform(self, X=None):
         if X is None:
             return super().transform(None)

@@ -19,7 +19,7 @@ import torch
 from ...base import DRModule
 from ...ops.reductions import svd_flip
 from ...parallel.mesh import ShardedRows
-from ...utils.wrappers import restore_format, to_torch
+from ...utils.wrappers import full_float32, restore_format, to_torch
 
 
 def _pca_svd(X: torch.Tensor, n_components: int):
@@ -128,6 +128,7 @@ class PCA(DRModule):
             raise ValueError(f"[TorchDR-Torch] ERROR : unknown PCA method {method!r}.")
         return embedding
 
+    @full_float32()
     def transform(self, X=None):
         """The training embedding, or new rows projected on the fitted
         components: (X − mean_) @ components_.T, on the fit's device in

@@ -6,9 +6,12 @@ compiled on its own, at first use, with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC
 
-into ``torchdr_tpu_torch/_build/lib<name>-<hash>.so``, where ``<hash>`` is
-taken from the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is compiled when a module is
+into ``<build>/lib<name>-<hash>.so``, where ``<hash>`` is taken from the
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded, also from a cache that several installs share. ``<build>``
+(:func:`build_dir`) is the package's ``_build/`` where the package is
+writable (a checkout), else ``~/.cache/torchdr_tpu_torch/build`` (an
+installed, read-only package). Nothing is compiled when a module is
 imported. :func:`build_libraries` starts one ``nvcc`` per source at once.
 A library may export several entry points (``SIGNATURES``).
 """
@@ -29,7 +32,6 @@ import torch
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "ops" / "csrc"
-BUILD_DIR = _PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -77,21 +79,33 @@ def _nvcc() -> str:
     return path
 
 
+def build_dir() -> Path:
+    """Where built libraries go: the package's ``_build/`` when it is (or can
+    be made) writable, else ``~/.cache/torchdr_tpu_torch/build``, after the
+    JAX package's ``~/.cache/torchdr_tpu/``. The native loader's library goes
+    there too."""
+    local = _PKG_DIR / "_build"
+    if os.access(local if local.is_dir() else _PKG_DIR, os.W_OK):
+        return local
+    return Path.home() / ".cache" / "torchdr_tpu_torch" / "build"
+
+
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return build_dir() / f"lib{name}-{digest[:12]}.so"
 
 
 def build_libraries(names: Iterable[str] = tuple(SIGNATURES)) -> List[Path]:
     """Compile every missing library, one ``nvcc`` per source, in parallel."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

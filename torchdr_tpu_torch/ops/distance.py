@@ -21,9 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.wrappers import full_float32
 from .metrics import MASK_VALUE, check_metric, indexed_block, pairwise_block
 
 
+@full_float32()
 def pairwise_distances(
     X: torch.Tensor,
     Y: Optional[torch.Tensor] = None,
@@ -47,6 +49,7 @@ def pairwise_distances(
     return d, i.to(torch.int32)
 
 
+@full_float32()
 def pairwise_distances_indexed(
     X: torch.Tensor,
     query_indices: Optional[torch.Tensor] = None,
@@ -84,6 +87,7 @@ def _mask_self(C: torch.Tensor, row0: int, col0: int) -> None:
         C[ids - row0, ids - col0] += MASK_VALUE
 
 
+@full_float32()
 def knn_graph(
     X: torch.Tensor,
     Y: Optional[torch.Tensor] = None,
@@ -153,6 +157,7 @@ def knn_graph(
     return dists, indices
 
 
+@full_float32()
 def knn_graph_host_chunked(
     X: torch.Tensor,
     Y: Optional[torch.Tensor] = None,

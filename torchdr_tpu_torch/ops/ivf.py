@@ -61,8 +61,9 @@ Deviations from the JAX package (ROADMAP queue 3):
 - ``lax.approx_min_k`` becomes an exact ``torch.topk``, in the supers vote
   too. On the CPU, XLA's lowering of ``approx_min_k`` is exact too; on a
   TPU it is binned.
-- Every product is full float32 (TF32 off): ``scan_precision`` takes the
-  JAX package's names and changes nothing, where the JAX package votes
+- Every product is full float32 (the entry points hold ``full_float32``):
+  ``scan_precision`` takes the JAX package's names and changes nothing,
+  where the JAX package votes
   and scans at ``Precision.HIGH``. A scan score is |x|² − 2 q·x in one
   product (``baddbmm``) with x rebuilt in float32 (c + hi + lo, c + hi
   under ``scan_fidelity="hi"``, c + s·q), where the JAX package sums
@@ -93,6 +94,7 @@ import numpy as np
 import torch
 
 from ..base import resolve_device
+from ..utils.wrappers import full_float32
 from .distance import knn_graph
 from .kmeans import kmeans_fit
 from .metrics import MASK_VALUE
@@ -365,6 +367,7 @@ def _build_cell_adjacency(centroids: torch.Tensor, P: Optional[int] = None):
     return adj
 
 
+@full_float32()
 def ivf_build(
     X,
     n_clusters: Optional[int] = None,
@@ -984,6 +987,7 @@ def _check_search_args(budget_order, scan_precision, scan_fidelity, scoring=None
         )
 
 
+@full_float32()
 def ivf_knn(
     X,
     k: int = 15,
@@ -1098,6 +1102,7 @@ def _pad_queries(Q, Q_lo, ids, pad: int):
     return Q, Q_lo, ids
 
 
+@full_float32()
 def ivf_knn_queries(
     Q,
     index: IVFIndex,
@@ -1203,6 +1208,7 @@ def ivf_knn_queries(
     return d, i
 
 
+@full_float32()
 def ivf_build_from_batches(
     batches,
     n_clusters: Optional[int] = None,

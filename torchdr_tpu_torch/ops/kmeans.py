@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.wrappers import full_float32
 from .metrics import sq_dists_from_gram
 
 _SYNC_EVERY = 8
@@ -61,6 +62,7 @@ def _plus_plus_init(X: torch.Tensor, n_clusters: int, generator: torch.Generator
     return centers
 
 
+@full_float32()
 def kmeans_fit(
     X: torch.Tensor,
     n_clusters: int,

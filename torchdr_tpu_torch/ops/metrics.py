@@ -1,9 +1,9 @@
 """Distance metrics on tensors (counterpart of ``torchdr_tpu/ops/metrics.py``).
 
 Dense squared-euclidean forms are one matrix product plus rank-1 norm
-corrections. Every gram runs in full float32: the package turns TF32 off
-(see the package docstring), because a reduced-precision cross term flips
-neighbour ranks.
+corrections. Every gram runs in full float32, because a reduced-precision
+cross term flips neighbour ranks: the public entry points that reach it
+hold cuBLAS there (``utils.wrappers.full_float32``).
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..base import resolve_device
+from ..utils.wrappers import full_float32
 from .kmeans import kmeans_fit
 from .metrics import MASK_VALUE
 
@@ -42,6 +43,7 @@ def _as_rows(X, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(resolve_device(device))
 
 
+@full_float32()
 def pq_train(
     X_train,
     M: int = 16,
@@ -70,6 +72,7 @@ def pq_train(
     return PQCodebook(codebooks, M, dsub)
 
 
+@full_float32()
 def pq_encode(X, cb: PQCodebook, block: int = 8192, device="auto") -> torch.Tensor:
     """(n, M) uint8 codes of X's rows, ``block`` rows at a time."""
     X = _as_rows(X, device)
@@ -85,6 +88,7 @@ def pq_encode(X, cb: PQCodebook, block: int = 8192, device="auto") -> torch.Tens
     return codes
 
 
+@full_float32()
 def pq_search(
     Q,
     codes: torch.Tensor,
@@ -131,6 +135,7 @@ def pq_search(
     return out_d, out_i
 
 
+@full_float32()
 def pq_knn(
     X,
     k: int = 15,

@@ -23,10 +23,12 @@ import numpy as np
 import torch
 
 from ..base import resolve_device
+from ..utils.wrappers import full_float32
 from .distance import knn_graph
 from .loader import BatchSource
 
 
+@full_float32()
 def knn_graph_from_batches(
     batches: Iterable,
     k: int = 15,
@@ -81,6 +83,7 @@ def knn_graph_from_batches(
     return torch.cat(dists_out, dim=0), torch.cat(idx_out, dim=0)
 
 
+@full_float32()
 def knn_graph_streaming(
     batches: Iterable,
     k: int = 15,

@@ -26,6 +26,7 @@ from ..ops.ivf import (
     _resolve_search_knobs,
     ivf_build,
 )
+from ..utils.wrappers import full_float32
 from .mesh import pad_to_multiple
 
 
@@ -36,6 +37,7 @@ def _index_on(index: IVFIndex, device: torch.device) -> IVFIndex:
     })
 
 
+@full_float32()
 def ivf_knn_sharded(
     X,
     mesh,

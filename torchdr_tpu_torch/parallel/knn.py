@@ -24,6 +24,7 @@ import torch
 
 from ..ops.distance import _mask_self, knn_graph
 from ..ops.metrics import MASK_VALUE, check_metric, pairwise_block
+from ..utils.wrappers import full_float32
 from .mesh import pad_to_multiple, replicate
 
 
@@ -32,6 +33,7 @@ def _row_chunks(n: int, world: int):
     return [(r * chunk, min(n, (r + 1) * chunk)) for r in range(world)]
 
 
+@full_float32()
 def knn_graph_sharded(
     X: torch.Tensor,
     k: int,
@@ -61,6 +63,7 @@ def knn_graph_sharded(
     return torch.cat(d_out), torch.cat(i_out)
 
 
+@full_float32()
 def knn_graph_sharded_queries(
     Q: torch.Tensor,
     DB: torch.Tensor,
@@ -83,6 +86,7 @@ def knn_graph_sharded_queries(
     return torch.cat(d_out), torch.cat(i_out)
 
 
+@full_float32()
 def knn_graph_ring(
     X: torch.Tensor,
     k: int,

@@ -4,8 +4,9 @@ checkpoints, profiling and plots (counterpart of ``torchdr_tpu/utils``).
 The JAX package's names, with two replaced on purpose: ``to_jax`` by
 ``to_torch``, and ``compile_cache_dir``/``enable_compile_cache`` (XLA's
 persistent cache) by the hashed libraries of ``ops/cuda/build.py``, the
-port's only compilation. Importing this module builds nothing and does not
-import matplotlib.
+port's only compilation, kept in ``build_dir()``: the package's ``_build/``
+where it is writable, else ``~/.cache/torchdr_tpu_torch/build``. Importing
+this module builds nothing and does not import matplotlib.
 """
 
 from .logger import get_logger, log_phase

@@ -8,7 +8,7 @@ step for step: the same orthonormalization (SVQB, twice), the same residual
 projection, Rayleigh-Ritz, search directions, and the stop test
 ``|r| < tol · 10 · n · (|AX| + θ)`` for every pair, with ``tol`` the dtype's
 epsilon and at most ``m`` iterations. Every product runs in the inputs'
-dtype (float32 with TF32 off, as the package sets it).
+dtype (full float32 inside the estimators, which hold ``full_float32``).
 
 The JAX loop is one ``lax.while_loop`` that tests its stop condition every
 iteration. Here the condition stays on the device: once it holds, later

@@ -5,10 +5,13 @@
 batches through a background prefetch thread, so reading the next batch
 overlaps the device's work on this one. At first use the source is
 compiled with ``g++`` and ``native/Makefile``'s flags into
-``torchdr_tpu_torch/_build/libtdr_native-<hash>.so`` (``<hash>`` from the
-source and the flags, so an edited source is rebuilt); nothing is written
-under ``native/``. Where the build or the load fails, the loader reads the
-file through numpy's memory map instead and logs a warning saying so.
+``<build>/libtdr_native-<hash>.so`` (``<hash>`` from the source and the
+flags, so an edited source is rebuilt), where ``<build>`` is the kernels'
+build directory (``ops/cuda/build.build_dir``: the package's ``_build/``
+where it is writable, else ``~/.cache/torchdr_tpu_torch/build``); nothing
+is written under ``native/``. Where the build or the load fails (an
+installed package has no ``native/`` beside it), the loader reads the file
+through numpy's memory map instead and logs a warning saying so.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ import numpy as np
 from .logger import get_logger
 
 _SRC = Path(__file__).resolve().parents[2] / "native" / "batch_loader.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 #: native/Makefile's CXXFLAGS, and -shared
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
 _lib = None
@@ -35,8 +37,10 @@ _logger = get_logger("NpyBatchLoader")
 
 
 def library_path() -> Path:
+    from ..ops.cuda.build import build_dir
+
     digest = hashlib.sha1(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"libtdr_native-{digest[:12]}.so"
+    return build_dir() / f"libtdr_native-{digest[:12]}.so"
 
 
 def _build() -> Path:
@@ -46,8 +50,8 @@ def _build() -> Path:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) found")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(_SRC)], capture_output=True,
                           timeout=300)

@@ -3,14 +3,77 @@
 Accepts numpy arrays, torch tensors and anything ``np.asarray`` takes, and
 restores the caller's container on output: a torch tensor comes back as a
 tensor on the fit's device, everything else as a numpy array.
+
+:func:`full_float32` holds cuBLAS at full float32 inside the public entry
+points, where the JAX package passes ``precision=HIGHEST`` on each product.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+# cuBLAS's TF32 switch is process-wide, so the nesting count is too: only
+# the outermost entry point, in any thread, sets and restores it.
+_FULL_FLOAT32_LOCK = threading.Lock()
+_full_float32_depth = 0
+_caller_precision: Tuple[Optional[str], Optional[str]] = (None, None)
+
+
+def _set_full_float32() -> None:
+    global _caller_precision
+    matmul = torch.backends.cuda.matmul
+    # torch >= 2.9 also keeps a per-backend setting; older torch has none
+    fine = getattr(matmul, "fp32_precision", None)
+    try:
+        coarse = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the caller mixed torch's legacy and per-backend calls
+        coarse = None
+    _caller_precision = (coarse, fine)
+    # sets the legacy and the per-backend state together, so they agree
+    torch.set_float32_matmul_precision("highest")
+
+
+def _restore_caller_precision() -> None:
+    coarse, fine = _caller_precision
+    if coarse is not None:
+        torch.set_float32_matmul_precision(coarse)
+    matmul = torch.backends.cuda.matmul
+    if fine is not None and matmul.fp32_precision != fine:
+        matmul.fp32_precision = fine
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Hold float32 matrix products at full float32 (no TF32), and give the
+    caller back its own setting on exit, also on an exception.
+
+    A TF32 distance gram keeps about three decimal digits and flips
+    neighbour ranks; the JAX package passes ``precision=HIGHEST`` on each
+    product, which no global setting changes. torch has no per-call switch,
+    so every public entry point of the port (the estimators' ``fit``,
+    ``fit_transform`` and ``transform``, ``Affinity.__call__``, the kNN, IVF,
+    k-means and PQ functions, the ``eval`` functions) runs inside this
+    context; it nests, and only the outermost entry sets and restores
+    torch's state. Usable as a decorator: ``@full_float32()``.
+    """
+    global _full_float32_depth
+    with _FULL_FLOAT32_LOCK:
+        if _full_float32_depth == 0:
+            _set_full_float32()
+        _full_float32_depth += 1
+    try:
+        yield
+    finally:
+        with _FULL_FLOAT32_LOCK:
+            _full_float32_depth -= 1
+            if _full_float32_depth == 0:
+                _restore_caller_precision()
 
 
 def to_torch(
