@@ -158,7 +158,21 @@ Phases, in order; any failure exits non-zero:
    (``cuobjdump -sass``);
 16. with ``--profile`` only: device time by kernel and the device's idle
     share over 200 optimizer steps of the UMAP fit and of the t-SNE fit,
-    and over 100 steps of each fit of phase 5 (torch.profiler).
+    and over 100 steps of each fit of phase 5 (torch.profiler);
+17. real data: ``benchmarks.real_digits`` on the 1,797 x 64 handwritten
+    digits (the JAX script's six estimators, each fitted cold and warm), every
+    launch counter set to 0 just before each fit and read just after: K1 once
+    a step on UMAP, K2 and K3 on TSNE and SNE, no kernel on LargeVis,
+    InfoTSNE and PACMAP; each fit's 10-NN accuracy and trustworthiness held
+    to the JAX script's CPU reading (``real_digits.gates``), and each
+    embedding's trustworthiness on the card to the CPU's within 1e-5; before
+    the fits, K1 at their shape (1,797 rows, 2,048 shared negatives: more
+    than the rows) and K2, K3 at 1,797 rows in both modes, each against its
+    plain version as in phase 3; then ``benchmarks.profile_umap_step`` at its
+    full shape (60,000 rows, 240 neighbours, 150 negatives), its seven
+    readings with their CUDA-event times, its outputs finite, and one more
+    call of each part on the card held to the same part on the CPU on the
+    same inputs.
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
@@ -172,7 +186,8 @@ UMAP and t-SNE fits of phase 4 beside it. With ``--tiers`` it builds K1
 and runs phase 11 alone (~7 min). With ``--api`` it builds K1, K2 and K3,
 fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
 ``--examples`` it builds K1, K2 and K3 and runs phase 13 alone. With
-``--bench`` it builds K1 and runs phase 14 alone. With
+``--bench`` it builds K1 and runs phase 14 alone. With ``--digits`` it
+builds K1, K2 and K3 and runs phase 17 alone. With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -451,6 +466,20 @@ print(json.dumps({"package": os.path.dirname(torchdr_tpu_torch.__file__),
                   "max_abs_err": float((got - plain).abs().max()),
                   "finite": bool(torch.isfinite(got).all())}))
 """
+
+# The real-data phase (17): the digits record (benchmarks.real_digits) on the
+# card, each fit held to the JAX script's CPU reading by real_digits.gates,
+# each of its two fits (cold, warm) to DIGITS_KERNELS once a step taken and
+# every other kernel 0, and each embedding's torch trustworthiness on the card
+# to the same function on the CPU within DIGITS_TW_TOL; then the UMAP step
+# decomposition (benchmarks.profile_umap_step) at its full shape, its outputs
+# finite, and each part on the card within STEP_ATOL + STEP_RTOL * |cpu| of
+# the same part on the CPU (float32 sums of up to 240 terms in another order;
+# the parts' CPU functions are held to the JAX formulas at 1e-5 in the tests)
+DIGITS_KERNELS = {"UMAP": ("fused_shared_repulsion",), "TSNE": K2_K3, "LargeVis": (),
+                  "InfoTSNE": (), "PACMAP": (), "SNE": K2_K3}
+DIGITS_TW_TOL = 1e-5
+STEP_ATOL, STEP_RTOL = 1e-4, 1e-5
 
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
@@ -1076,9 +1105,10 @@ def run_rowlse_kernels(torch, gen) -> None:
     time_general_k2_k3(torch, mesh_gen, mesh, worst)
 
 
-def check_k2_k3(torch, gen) -> tuple:
-    """K2 and K3 against their plain versions on the card, then their
-    times (:func:`time_k2_k3`)."""
+def hold_k2_k3(torch, label, Z, kernel) -> tuple:
+    """One K2/K3 case against the plain versions, K2 within TOL_K2 and K3
+    within TOL_K3; K3's weights are the softmax of the row log-sums
+    (student) or uniform (gaussian). Returns the two max |kernel - plain|."""
     from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
         rowlse_bwd,
         rowlse_bwd_plain,
@@ -1086,6 +1116,37 @@ def check_k2_k3(torch, gen) -> tuple:
         rowlse_fwd_plain,
     )
 
+    n, d = Z.shape
+    out = rowlse_fwd(Z, kernel)
+    ref = rowlse_fwd_plain(Z, kernel)
+    g = torch.softmax(ref, 0) if kernel == "student" else torch.full_like(ref, 1.0 / n)
+    dZ = rowlse_bwd(Z, ref, g, kernel)
+    dZ_ref = rowlse_bwd_plain(Z, ref, g, kernel)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(dZ).all())
+    e2 = float((out - ref).abs().max())
+    lim2 = TOL_K2 * max(1.0, float(ref.abs().max()))
+    e3 = float((dZ - dZ_ref).abs().max())
+    lim3 = TOL_K3 * float(dZ_ref.abs().max())
+    print(
+        f"K2/K3 {label}: n={n} d={d} {kernel} max|K2-plain|={e2:.3e} (limit {lim2:.1e}) "
+        f"max|K3-plain|={e3:.3e} (limit {lim3:.1e}, max|plain| "
+        f"{float(dZ_ref.abs().max()):.3e}) lse in [{float(ref.min()):.4g}, "
+        f"{float(ref.max()):.4g}]",
+        flush=True,
+    )
+    if not (finite and bool(torch.isfinite(ref).all())):
+        raise AssertionError(f"K2/K3 {label}: non-finite values")
+    if not e2 <= lim2:
+        raise AssertionError(f"K2 {label}: max abs err {e2} > {lim2}")
+    if not e3 <= lim3:
+        raise AssertionError(f"K3 {label}: max abs err {e3} > {lim3}")
+    return e2, e3
+
+
+def check_k2_k3(torch, gen) -> tuple:
+    """K2 and K3 against their plain versions on the card, then their
+    times (:func:`time_k2_k3`)."""
     dev = torch.device("cuda")
     worst = {"K2": 0.0, "K3": 0.0}
 
@@ -1109,30 +1170,7 @@ def check_k2_k3(torch, gen) -> tuple:
             Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
         else:
             Z = spread_grid(64, spacing)
-        out = rowlse_fwd(Z, kernel)
-        ref = rowlse_fwd_plain(Z, kernel)
-        g = torch.softmax(ref, 0) if kernel == "student" else torch.full_like(ref, 1.0 / n)
-        dZ = rowlse_bwd(Z, ref, g, kernel)
-        dZ_ref = rowlse_bwd_plain(Z, ref, g, kernel)
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(out).all() and torch.isfinite(dZ).all())
-        e2 = float((out - ref).abs().max())
-        lim2 = TOL_K2 * max(1.0, float(ref.abs().max()))
-        e3 = float((dZ - dZ_ref).abs().max())
-        lim3 = TOL_K3 * float(dZ_ref.abs().max())
-        print(
-            f"K2/K3 {label}: n={n} d={d} {kernel} max|K2-plain|={e2:.3e} (limit {lim2:.1e}) "
-            f"max|K3-plain|={e3:.3e} (limit {lim3:.1e}, max|plain| "
-            f"{float(dZ_ref.abs().max()):.3e}) lse in [{float(ref.min()):.4g}, "
-            f"{float(ref.max()):.4g}]",
-            flush=True,
-        )
-        if not (finite and bool(torch.isfinite(ref).all())):
-            raise AssertionError(f"K2/K3 {label}: non-finite values")
-        if not e2 <= lim2:
-            raise AssertionError(f"K2 {label}: max abs err {e2} > {lim2}")
-        if not e3 <= lim3:
-            raise AssertionError(f"K3 {label}: max abs err {e3} > {lim3}")
+        e2, e3 = hold_k2_k3(torch, label, Z, kernel)
         worst["K2"] = max(worst["K2"], e2)
         worst["K3"] = max(worst["K3"], e3)
 
@@ -2466,6 +2504,103 @@ def run_bench_path(torch, counters, X) -> dict:
     return out
 
 
+def run_digits_path(torch, counters, smi: str) -> dict:
+    """Phase 17: ``real_digits.main`` on the card, every launch counter set
+    to 0 just before each of its twelve fits and read just after; each fit's
+    readings held to its gates and its launches to ``DIGITS_KERNELS``, and
+    its trustworthiness on the card to the CPU's; before the fits, K1, K2 and
+    K3 at the fits' shapes against their plain versions. Then
+    ``profile_umap_step.main`` at its full shape, and each of its parts on the
+    card against the CPU. Returns the launches by estimator and fit."""
+    from contextlib import contextmanager
+
+    from torchdr_tpu_torch import UMAP
+    from torchdr_tpu_torch.benchmarks import profile_umap_step, real_digits
+    from torchdr_tpu_torch.models.neighbor.umap import find_ab_params
+    from torchdr_tpu_torch.utils.wrappers import full_float32
+
+    t_phase = time.perf_counter()
+    X, _ = real_digits.load_digits()
+    X = X.astype(np.float32)
+    n = X.shape[0]
+    # the kernels at the fits' shapes: K1 on UMAP's shared sample, which at
+    # this n holds more ids than there are rows; K2, K3 in t-SNE's and SNE's
+    # modes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    S = UMAP(device="cuda")._shared_negative_count(n)
+    hold_k1(torch, f"digits S={S}", *k1_inputs(torch, gen, n, S, 2), *find_ab_params(1.0, 0.1))
+    for kernel in ("student", "gaussian"):
+        Z = (5.0 * torch.randn((n, 2), generator=gen, device="cuda")).contiguous()
+        hold_k2_k3(torch, f"digits {kernel}", Z, kernel)
+
+    watched = {}
+
+    @contextmanager
+    def watch(name, model):
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        yield
+        torch.cuda.synchronize()
+        watched.setdefault(name, []).append(
+            {"steps": model.n_iter_, "launches": {fn.__name__: fn.launches for fn in counters}})
+
+    res = real_digits.main([], watch=watch)
+    failed = []
+    for name, fit in res["fits"].items():
+        card_tw = real_digits.trustworthiness(X, fit["embedding"], 15, device="cuda")
+        cpu_tw = real_digits.trustworthiness(X, fit["embedding"], 15, device="cpu")
+        rec = {"model": name, "steps": fit["steps"], "fits": watched[name],
+               "gates": fit["gates"], "trustworthiness15_card": card_tw,
+               "trustworthiness15_cpu": cpu_tw,
+               **{k: fit[k] for k in ("cold_s", "warm_s", "silhouette", "trustworthiness15",
+                                      "knn_acc10", "preservation15")}}
+        print("digits " + json.dumps(rec), flush=True)
+        if not np.all(np.isfinite(fit["embedding"])):
+            failed.append(f"{name}: embedding not finite")
+        for key, floor in fit["gates"].items():
+            if not fit[key] >= floor:
+                failed.append(f"{name}: {key} {fit[key]} < {floor}")
+        if not abs(card_tw - cpu_tw) <= DIGITS_TW_TOL:
+            failed.append(f"{name}: trustworthiness card {card_tw} cpu {cpu_tw}")
+        if len(watched[name]) != 2:
+            failed.append(f"{name}: {len(watched[name])} fits watched")
+        for one in watched[name]:
+            want = {fn: (one["steps"] if fn in DIGITS_KERNELS[name] else 0)
+                    for fn in one["launches"]}
+            if one["launches"] != want or (DIGITS_KERNELS[name] and one["steps"] == 0):
+                failed.append(f"{name}: launches {one['launches']} in {one['steps']} steps")
+
+    t0 = time.perf_counter()
+    step = profile_umap_step.main([])
+    print(f"step decomposition ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(step["readings"]), flush=True)
+    for label, out in step["outputs"].items():
+        if not bool(torch.isfinite(out).all()):
+            failed.append(f"step {label}: not finite")
+    # each part once more, on the card and on the CPU, on the same Z, ids and
+    # negatives
+    Z, NN, P, _ = profile_umap_step.inputs(step["n"], step["width"], "cuda")
+    neg = torch.randint(0, step["n"], (step["n"], step["n_neg"]), generator=gen, device="cuda")
+    card = profile_umap_step.parts(Z, NN, P, None, neg)
+    host = profile_umap_step.parts(Z.cpu(), NN.cpu(), P.cpu(), None, neg.cpu())
+    errs = {}
+    with full_float32():
+        for (label, fn), (_, fn_cpu) in zip(card, host):
+            got, want = fn().cpu(), fn_cpu()
+            errs[label] = float((got - want).abs().max())
+            if not (bool(torch.isfinite(got).all())
+                    and bool(((got - want).abs() <= STEP_ATOL + STEP_RTOL * want.abs()).all())):
+                failed.append(f"step {label}: card against CPU max abs err {errs[label]}")
+    print(f"step parts, card against CPU (limit {STEP_ATOL:g} + {STEP_RTOL:g}|cpu|): "
+          + json.dumps(errs), flush=True)
+    print(f"digits phase {time.perf_counter() - t_phase:.1f} s ({smi})", flush=True)
+    if failed:
+        raise AssertionError("digits phase: " + "; ".join(failed))
+    return {name: [one["launches"] for one in fits] for name, fits in watched.items()}
+
+
 def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
@@ -2653,12 +2788,13 @@ def main() -> int:
     api_only = "--api" in sys.argv[1:]
     examples_only = "--examples" in sys.argv[1:]
     bench_only = "--bench" in sys.argv[1:]
+    digits_only = "--digits" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
     elif rowlse_only:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
-    elif mesh_only or engine_only or api_only or examples_only:
+    elif mesh_only or engine_only or api_only or examples_only or digits_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only or tiers_only or bench_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
@@ -2681,6 +2817,10 @@ def main() -> int:
         return 0
     if examples_only:
         run_examples_path(torch, counters)
+        print(smi, flush=True)
+        return 0
+    if digits_only:
+        run_digits_path(torch, counters, smi)
         print(smi, flush=True)
         return 0
     from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
@@ -2795,6 +2935,13 @@ def main() -> int:
             prof = profile_optimize(torch, model_cls, data, steps, **params)
             print("profile " + json.dumps(prof), flush=True)
         profile_engine(torch, X)
+
+    # 17. real data: the digits record's six fits, and the UMAP step's parts
+    digits = run_digits_path(torch, counters, smi)
+    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd")):
+        rec["digits_launches"] = {model: [fit[name] for fit in fits]
+                                  for model, fits in digits.items()
+                                  if any(fit[name] for fit in fits)}
 
     print(json.dumps({"kernels": [k1, k2, k3, *gathers]}), flush=True)
     print(smi, flush=True)

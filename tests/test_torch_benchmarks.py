@@ -124,11 +124,12 @@ def test_umap_single_cell_prints_its_line(capsys):
 
 
 def test_no_port_script_imports_jax_the_jax_package_or_sklearn():
-    """The three benchmarks and the API-docs generator (executed as a module,
-    not run) in a fresh process, which prints its ``sys.modules``."""
+    """The five benchmark scripts and the API-docs generator (executed as a
+    module, not run) in a fresh process, which prints its ``sys.modules``."""
     code = (
         "import importlib, importlib.util, json, sys\n"
-        "for m in ('bench', 'knn_benchmark', 'umap_single_cell'):\n"
+        "for m in ('bench', 'knn_benchmark', 'umap_single_cell', 'real_digits',\n"
+        "          'profile_umap_step'):\n"
         "    importlib.import_module('torchdr_tpu_torch.benchmarks.' + m)\n"
         "spec = importlib.util.spec_from_file_location('gen', 'scripts/gen_torch_api_docs.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -138,6 +139,7 @@ def test_no_port_script_imports_jax_the_jax_package_or_sklearn():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(json.loads(proc.stdout.splitlines()[-1]))
-    assert "torchdr_tpu_torch.benchmarks.umap_single_cell" in loaded
+    for m in ("umap_single_cell", "real_digits", "profile_umap_step"):
+        assert f"torchdr_tpu_torch.benchmarks.{m}" in loaded
     for banned in ("jax", "jaxlib", "torchdr_tpu", "sklearn"):
         assert not [m for m in loaded if m.split(".")[0] == banned], banned

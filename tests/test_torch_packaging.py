@@ -1,9 +1,10 @@
 """An installed port can build its kernels.
 
 A wheel of the repository ships the CUDA sources that ``ops/cuda/build.py``
-compiles at first use, and the ``torch`` extra; where the package directory
-is not writable (an installed package), the kernels' libraries and the
-native loader's go to ``~/.cache/torchdr_tpu_torch/build``. The card's side
+compiles at first use, the digits record's data and reference, and the
+``torch`` extra; where the package directory is not writable (an installed
+package), the kernels' libraries and the native loader's go to
+``~/.cache/torchdr_tpu_torch/build``. The card's side
 of this (a read-only copy builds K1 there and launches it) is
 ``chip_smoke.py`` phase 14 (b).
 """
@@ -39,6 +40,8 @@ def test_wheel_ships_the_kernel_sources_and_the_torch_extra(tmp_path):
     assert sources == sorted(f"{lib}.cu" for lib in build.SIGNATURES)
     for name in sources:
         assert f"torchdr_tpu_torch/ops/csrc/{name}" in names
+    for name in ("data/digits.csv.gz", "real_digits_reference.json"):  # the digits record
+        assert f"torchdr_tpu_torch/benchmarks/{name}" in names
     (meta,) = [n for n in names if n.endswith(".dist-info/METADATA")]
     metadata = zipfile.ZipFile(wheel).read(meta).decode()
     assert "Provides-Extra: torch" in metadata

@@ -81,6 +81,13 @@ def accuracy_gate(script: str, name: str, n: int) -> float:
     full = ref.get("full_size", {})
     reading = full["fits"].get(name) if full.get("n") == n else None
     jax_acc = (reading or ref.get("fits", {}).get(name, {})).get("knn_acc", 1.0)
+    return acc_gate(jax_acc)
+
+
+def acc_gate(jax_acc: float) -> float:
+    """The 10-NN accuracy gate of a fit whose JAX counterpart read
+    ``jax_acc``: that reading less 0.05 where it is below 0.95, else
+    ``MIN_ACC``."""
     return MIN_ACC if jax_acc >= 0.95 else jax_acc - 0.05
 
 
