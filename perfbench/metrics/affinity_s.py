@@ -1,0 +1,8 @@
+"""affinity_s (s): the input affinity less its kNN phase, ``timings_["affinity"]
+- timings_["knn"]`` (mean over the window's fits)."""
+
+from perfbench.readers import mean_over_fits
+
+
+def read(ctx):
+    return mean_over_fits(ctx, lambda f: f["timings"]["affinity"] - f["timings"]["knn"])
