@@ -328,7 +328,9 @@ def test_sne_fit_counts_steps_and_times_phases():
     model = SNE(perplexity=10, max_iter=40, random_state=0, device="cpu")
     Z = model.fit_transform(X)
     assert model.n_iter_ == 40 and np.all(np.isfinite(Z))
-    assert set(model.timings_) == {"knn", "affinity", "init", "optimize"}
+    assert set(model.timings_) == {"knn", "affinity", "init", "optimize"} | {
+        "fit", "api.check", "api.dedup", "api.h2d", "api.d2h",
+        "optimize.consts", "optimize.loop", "optimize.wait"}
 
 
 def test_tsne_device_auto_without_cuda_raises():

@@ -448,7 +448,9 @@ def test_fit_counts_steps_and_times_phases():
     model = UMAP(n_neighbors=10, max_iter=30, random_state=0, device="cpu")
     model.fit_transform(X)
     assert model.n_iter_ == 30
-    assert set(model.timings_) == {"knn", "affinity", "init", "optimize"}
+    assert set(model.timings_) == {"knn", "affinity", "init", "optimize"} | {
+        "fit", "api.check", "api.dedup", "api.h2d", "api.d2h",
+        "optimize.consts", "optimize.loop", "optimize.wait"}
 
 
 def test_device_auto_without_cuda_raises():

@@ -58,6 +58,7 @@ from .utils.encoders import init_encoder_variables
 from .utils.logger import log_phase
 from .utils.manifold import poincare_expmap0
 from .utils.optim import make_optimizer, normalize_optimizer_kwargs
+from .utils.profiling import span, span_total
 from .utils.schedulers import make_scheduler
 from .utils.wrappers import full_float32, restore_format, to_torch
 
@@ -84,9 +85,17 @@ class _FlatVariables:
 class AffinityMatcher(DRModule):
     r"""Minimize a loss between input affinity P and embedding affinity Q.
 
-    ``timings_`` holds the wall time of the last fit's phases: "knn" (the
-    kNN build inside the affinity), "affinity" (the whole input affinity,
-    kNN included), "init" and "optimize". ``encoder`` takes a
+    ``timings_`` holds the wall seconds of the last fit's spans, those on
+    the device synchronised at their end: ``DRModule.fit_transform``'s
+    ("fit", "api.check", "api.dedup", "api.h2d", "api.d2h"), and the phases
+    "affinity" (the whole input affinity, kNN included), "knn" (the kNN
+    build inside it; with ``knn_mode="ivf"`` on one device "knn.build",
+    the index, and "knn.search"), "init" and "optimize", which holds
+    "optimize.consts" (the loop's constants and first carry) and
+    "optimize.loop" (the loop). "optimize.wait" is the part of the loop
+    spent waiting on the device (the grad-norm reads of the check steps
+    and each segment's closing synchronise); the rest of the loop is the
+    host's issue of the steps. ``encoder`` takes a
     ``torch.nn.Module`` (e.g. ``utils.encoders.make_mlp_encoder``), whose
     weights are then optimized instead of a free embedding matrix.
     """
@@ -202,7 +211,6 @@ class AffinityMatcher(DRModule):
         self.n_samples_in_, self.n_features_in_ = X.shape
         self.device_ = X.device
         self._generator_ = self._root_generator()
-        self.timings_ = {}
         # the mesh is resolved before the affinity phase and injected into
         # the input affinity, so that its kNN build shards over it too
         self._fit_mesh_ = self._resolve_mesh()
@@ -224,8 +232,9 @@ class AffinityMatcher(DRModule):
         with log_phase(self.logger, "init", self.timings_, X.device):
             Z0 = self._init_embedding(X)
         with log_phase(self.logger, "optimize", self.timings_, X.device):
-            consts = self._build_consts(X)
-            carry0 = self._init_carry(consts)
+            with span("consts", X.device):
+                consts = self._build_consts(X)
+                carry0 = self._init_carry(consts)
             Z, n_iter, grad_norm = self._optimize(Z0, consts, carry0)
 
         self.n_iter_ = int(n_iter)
@@ -454,49 +463,53 @@ class AffinityMatcher(DRModule):
     # --- the optimization loop ---
 
     def _optimize(self, Z0: torch.Tensor, consts: Dict, carry0: Dict):
-        if self.encoder is not None:
-            params, to_Z = self._encoder_map(consts["X_encoder"])
+        waiting = span_total("wait")
+        with span("loop", Z0.device):
+            if self.encoder is not None:
+                params, to_Z = self._encoder_map(consts["X_encoder"])
 
-            def gradients(theta, consts, carry, it, coeff):
-                return self._encoder_gradients(to_Z, theta, consts, carry, it, coeff)
-        else:
-            params, to_Z = Z0, None
-            gradients = (
-                self._gradients if self._use_closed_form_gradients else self._loss_gradients
-            )
-        opt = make_optimizer(self.optimizer)
-        schedule = self._make_schedule()
-        ee_iter = self._ee_iter_resolved()
-        check_interval = int(self.check_interval)
-        min_grad_norm = float(self.min_grad_norm)
-        max_iter = int(self.max_iter)
-        segment = max(1, int(self.max_iters_per_dispatch or max_iter))
+                def gradients(theta, consts, carry, it, coeff):
+                    return self._encoder_gradients(to_Z, theta, consts, carry, it, coeff)
+            else:
+                params, to_Z = Z0, None
+                gradients = (
+                    self._gradients if self._use_closed_form_gradients else self._loss_gradients
+                )
+            opt = make_optimizer(self.optimizer)
+            schedule = self._make_schedule()
+            ee_iter = self._ee_iter_resolved()
+            check_interval = int(self.check_interval)
+            min_grad_norm = float(self.min_grad_norm)
+            max_iter = int(self.max_iter)
+            segment = max(1, int(self.max_iters_per_dispatch or max_iter))
 
-        opt_state, carry = opt.init(params), carry0
-        grad_norm = float("inf")
-        n_iter, done = 0, False
-        while n_iter < max_iter and not done:
-            for it in range(n_iter, min(n_iter + segment, max_iter)):
-                coeff, lr_t, hyper = schedule(it)
-                if ee_iter >= 0 and it == ee_iter + 1:
-                    # the reference re-creates the optimizer after step ee_iter
-                    opt_state = opt.reset(opt_state)
-                grad, carry = gradients(params, consts, carry, it, coeff)
-                params, opt_state = opt.update(grad, opt_state, params, lr_t, hyper)
-                n_iter = it + 1
-                if it % check_interval == 0:
-                    # the only host read of a segment's steps
-                    grad_norm = float(torch.linalg.vector_norm(grad))
-                    if grad_norm < min_grad_norm:
-                        done = True
-                        break
-            if params.is_cuda:
-                torch.cuda.synchronize(params.device)  # the end of a segment
-        self._final_carry_ = carry
-        if to_Z is None:
-            return params, n_iter, grad_norm
-        self.encoder_variables_ = {
-            k: v.detach() for k, v in self._encoder_flat_.unflatten(params).items()
-        }
-        with torch.no_grad():
-            return to_Z(params), n_iter, grad_norm
+            opt_state, carry = opt.init(params), carry0
+            grad_norm = float("inf")
+            n_iter, done = 0, False
+            while n_iter < max_iter and not done:
+                for it in range(n_iter, min(n_iter + segment, max_iter)):
+                    coeff, lr_t, hyper = schedule(it)
+                    if ee_iter >= 0 and it == ee_iter + 1:
+                        # the reference re-creates the optimizer after step ee_iter
+                        opt_state = opt.reset(opt_state)
+                    grad, carry = gradients(params, consts, carry, it, coeff)
+                    params, opt_state = opt.update(grad, opt_state, params, lr_t, hyper)
+                    n_iter = it + 1
+                    if it % check_interval == 0:
+                        # the only host read of a segment's steps
+                        with waiting:
+                            grad_norm = float(torch.linalg.vector_norm(grad))
+                        if grad_norm < min_grad_norm:
+                            done = True
+                            break
+                if params.is_cuda:
+                    with waiting:
+                        torch.cuda.synchronize(params.device)  # the end of a segment
+            self._final_carry_ = carry
+            if to_Z is None:
+                return params, n_iter, grad_norm
+            self.encoder_variables_ = {
+                k: v.detach() for k, v in self._encoder_flat_.unflatten(params).items()
+            }
+            with torch.no_grad():
+                return to_Z(params), n_iter, grad_norm

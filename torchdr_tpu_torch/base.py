@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .utils.logger import get_logger
+from .utils.profiling import fit_span, span
 from .utils.wrappers import deduplicate, full_float32, restore_format, to_host, validate_2d
 
 
@@ -163,27 +164,41 @@ class DRModule(BaseEstimator, ABC):
         Validation and deduplication run on the host array, before the
         single push to the device; duplicate rows are mapped back through
         the inverse index.
+
+        ``timings_`` holds the wall seconds of the last fit's spans
+        (``utils/profiling.py``): "fit", the whole call, synchronised at its
+        end; "api.check" (the conversion to a host array and its checks),
+        "api.dedup" (with ``process_duplicates``), "api.h2d" (the copy to
+        the device, synchronised) and "api.d2h" (the inverse gather and the
+        result in the caller's format); subclasses add their phases.
         """
         device = self._resolve_device()
-        X_host, fmt = to_host(X)
-        validate_2d(X_host)
-        self._input_format_ = fmt
+        self.timings_ = {}
+        with fit_span(self.timings_, device):
+            with span("api.check"):
+                X_host, fmt = to_host(X)
+                validate_2d(X_host)
+            self._input_format_ = fmt
 
-        inverse = None
-        if self.process_duplicates:
-            X_host, inverse = deduplicate(X_host)
-            if inverse is not None:
-                self.logger.info(
-                    f"Detected {inverse.shape[0] - X_host.shape[0]} duplicate "
-                    "samples, performing DR on unique data."
-                )
-        X_dev = torch.from_numpy(np.ascontiguousarray(X_host)).to(device)
-        emb = self._fit_transform(X_dev, y=y)
-        if inverse is not None:
-            emb = emb[torch.from_numpy(inverse).to(device)]
-        self.embedding_ = emb
-        self.is_fitted_ = True
-        return restore_format(self.embedding_, fmt)
+            inverse = None
+            if self.process_duplicates:
+                with span("api.dedup"):
+                    X_host, inverse = deduplicate(X_host)
+                if inverse is not None:
+                    self.logger.info(
+                        f"Detected {inverse.shape[0] - X_host.shape[0]} duplicate "
+                        "samples, performing DR on unique data."
+                    )
+            with span("api.h2d", device):
+                X_dev = torch.from_numpy(np.ascontiguousarray(X_host)).to(device)
+            emb = self._fit_transform(X_dev, y=y)
+            with span("api.d2h"):
+                if inverse is not None:
+                    emb = emb[torch.from_numpy(inverse).to(device)]
+                self.embedding_ = emb
+                self.is_fitted_ = True
+                out = restore_format(self.embedding_, fmt)
+        return out
 
     @full_float32()
     def transform(self, X=None):

@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from ..base import resolve_device
+from ..utils.profiling import span
 from ..utils.wrappers import full_float32
 from .distance import knn_graph
 from .kmeans import kmeans_fit
@@ -1030,65 +1031,72 @@ def ivf_knn(
     package's values and each gives the same result for every one of them;
     ``scan_fidelity="hi"`` scans the split tier's hi plane alone (module
     docstring, ``_check_search_args``); other values raise.
+
+    Inside a fit the build and the search are spans of the fit's
+    ``timings_`` (``utils/profiling.py``), under the phase that calls this
+    function: "knn.build" and "knn.search" in the input affinity's kNN.
     """
     _check_search_args(budget_order, scan_precision, scan_fidelity, scoring)
     if index is None:
         if X is None:
             raise ValueError("[TorchDR-Torch] ERROR : pass X or a prebuilt index.")
-        index = ivf_build(X, n_clusters=n_clusters, generator=generator, storage=storage,
-                          device=device)
-    asym = scoring == "asymmetric"
-    dev = index.X_sorted.device
-    if asym:
-        if X is None:
-            raise ValueError(
-                "[TorchDR-Torch] ERROR : scoring='asymmetric' needs X (the "
-                "exact float32 rows) alongside the index."
-            )
-        X_exact = torch.as_tensor(X, dtype=torch.float32).to(dev)
-    n = index.n
-    nprobe, budget, m_eff, merge, max_ch, scan_impl, n_supers, nominate = _resolve_search_knobs(
-        index, k, nprobe, m, budget, merge, scan_impl, nprobe_supers, nomination, rerank=rerank,
-    )
-    chunk = index.chunk
-    search = dict(k=k, ncells=nprobe, budget=budget, block=block, chunk=chunk, m=m_eff,
-                  merge=merge, max_ch=max_ch, nominate=nominate, rerank=rerank,
-                  budget_order=budget_order, scan_fidelity=scan_fidelity, n_supers=n_supers,
-                  queries_exact=asym)
+        with span("build", X.device if isinstance(X, torch.Tensor) else None):
+            index = ivf_build(X, n_clusters=n_clusters, generator=generator, storage=storage,
+                              device=device)
+    with span("search", index.X_sorted.device):
+        asym = scoring == "asymmetric"
+        dev = index.X_sorted.device
+        if asym:
+            if X is None:
+                raise ValueError(
+                    "[TorchDR-Torch] ERROR : scoring='asymmetric' needs X (the "
+                    "exact float32 rows) alongside the index."
+                )
+            X_exact = torch.as_tensor(X, dtype=torch.float32).to(dev)
+        n = index.n
+        knobs = _resolve_search_knobs(index, k, nprobe, m, budget, merge, scan_impl,
+                                      nprobe_supers, nomination, rerank=rerank)
+        nprobe, budget, m_eff, merge, max_ch, scan_impl, n_supers, nominate = knobs
+        chunk = index.chunk
+        search = dict(k=k, ncells=nprobe, budget=budget, block=block, chunk=chunk, m=m_eff,
+                      merge=merge, max_ch=max_ch, nominate=nominate, rerank=rerank,
+                      budget_order=budget_order, scan_fidelity=scan_fidelity, n_supers=n_supers,
+                      queries_exact=asym)
 
-    total = index.X_sorted.shape[0] - chunk
-    Qs, Qs_lo, out_ids = index.X_sorted, index.X_lo, index.ids_sorted
-    if (total + chunk) % block == 0:
-        total = total + chunk  # the queries are the stored planes, not a copy
-    else:
-        n_pad = -(-total // block) * block
-        Qs, out_ids = Qs[:total], out_ids[:total]
-        Qs_lo = None if Qs_lo is None else Qs_lo[:total]
-        if n_pad != total:
-            Qs, Qs_lo, out_ids = _pad_queries(Qs, Qs_lo, out_ids, n_pad - total)
-        total = Qs.shape[0]
-    # the id each query excludes: shifted out of range when self matches
-    # are allowed, negative (vote-dead) for pad rows either way
-    q_rows = torch.where(out_ids >= 0, out_ids + (0 if exclude_self else n), out_ids)
-    scatter_ids = torch.where(out_ids >= 0, out_ids, n).long()  # dead rows -> spill slot n
-    out_d = torch.zeros((n + 1, k), dtype=torch.float32, device=dev)
-    out_i = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
-    seg = max(1, seg_rows // block) * block if total > seg_rows else total
-    for a in range(0, total, seg):
-        b = min(total, a + seg)
-        if asym:  # the exact rows of this segment; dead rows gather row 0
-            Q_seg, Ql_seg = X_exact[torch.clamp(out_ids[a:b], min=0).long()], None
+        total = index.X_sorted.shape[0] - chunk
+        Qs, Qs_lo, out_ids = index.X_sorted, index.X_lo, index.ids_sorted
+        if (total + chunk) % block == 0:
+            total = total + chunk  # the queries are the stored planes, not a copy
         else:
-            Q_seg, Ql_seg = Qs[a:b], None if Qs_lo is None else Qs_lo[a:b]
-        r_seg = q_rows[a:b]
-        sid = scatter_ids[a:b]
-        if b - a < seg:  # pad the tail with dead queries
-            Q_seg, Ql_seg, r_seg = _pad_queries(Q_seg, Ql_seg, r_seg, seg - (b - a))
-            sid = torch.cat([sid, torch.full((seg - (b - a),), n, dtype=torch.int64, device=dev)])
-        ds, is_ = _ivf_search_impl(Q_seg, r_seg, index, pos0=a, Qs_lo=Ql_seg, **search)
-        out_d[sid] = ds
-        out_i[sid] = is_
-    return out_d[:n], out_i[:n]
+            n_pad = -(-total // block) * block
+            Qs, out_ids = Qs[:total], out_ids[:total]
+            Qs_lo = None if Qs_lo is None else Qs_lo[:total]
+            if n_pad != total:
+                Qs, Qs_lo, out_ids = _pad_queries(Qs, Qs_lo, out_ids, n_pad - total)
+            total = Qs.shape[0]
+        # the id each query excludes: shifted out of range when self matches
+        # are allowed, negative (vote-dead) for pad rows either way
+        q_rows = torch.where(out_ids >= 0, out_ids + (0 if exclude_self else n), out_ids)
+        scatter_ids = torch.where(out_ids >= 0, out_ids, n).long()  # dead rows -> spill slot n
+        out_d = torch.zeros((n + 1, k), dtype=torch.float32, device=dev)
+        out_i = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
+        seg = max(1, seg_rows // block) * block if total > seg_rows else total
+        for a in range(0, total, seg):
+            b = min(total, a + seg)
+            if asym:  # the exact rows of this segment; dead rows gather row 0
+                Q_seg, Ql_seg = X_exact[torch.clamp(out_ids[a:b], min=0).long()], None
+            else:
+                Q_seg, Ql_seg = Qs[a:b], None if Qs_lo is None else Qs_lo[a:b]
+            r_seg = q_rows[a:b]
+            sid = scatter_ids[a:b]
+            if b - a < seg:  # pad the tail with dead queries
+                Q_seg, Ql_seg, r_seg = _pad_queries(Q_seg, Ql_seg, r_seg, seg - (b - a))
+                dead = torch.full((seg - (b - a),), n, dtype=torch.int64, device=dev)
+                sid = torch.cat([sid, dead])
+            ds, is_ = _ivf_search_impl(Q_seg, r_seg, index, pos0=a, Qs_lo=Ql_seg, **search)
+            out_d[sid] = ds
+            out_i[sid] = is_
+        return out_d[:n], out_i[:n]
 
 
 def _pad_queries(Q, Q_lo, ids, pad: int):

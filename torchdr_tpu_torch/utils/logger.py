@@ -3,7 +3,9 @@
 ``log_phase`` also records each phase's wall time into a caller's dict, so
 an estimator can report where a fit spent its time. Work on the card is
 asynchronous: a phase timed on a CUDA device synchronises that device once,
-at the end of the phase, so the time covers the work it enqueued.
+at the end of the phase, so the time covers the work it enqueued. A phase
+is a span of ``utils/profiling.py``: inside a fit, the spans opened under
+it are recorded as ``<phase>.<name>``.
 """
 
 from __future__ import annotations
@@ -11,10 +13,11 @@ from __future__ import annotations
 import contextlib
 import logging
 import sys
-import time
 from typing import Dict, Optional
 
 import torch
+
+from .profiling import phase_span
 
 _PREFIX = "[TorchDR-Torch]"
 
@@ -42,14 +45,10 @@ def log_phase(
     device: Optional[torch.device] = None,
 ):
     """Log (and optionally record in ``record[phase]``) a phase's wall time."""
-    t0 = time.perf_counter()
     logger.info(f"----- {phase} -----")
+    timed = phase_span(phase, record, device)
     try:
-        yield
+        with timed:
+            yield
     finally:
-        if device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        if record is not None:
-            record[phase] = dt
-        logger.info(f"{phase} took {dt:.3f}s")
+        logger.info(f"{phase} took {timed.seconds:.3f}s")
