@@ -172,7 +172,16 @@ Phases, in order; any failure exits non-zero:
     full shape (60,000 rows, 240 neighbours, 150 negatives), its seven
     readings with their CUDA-event times, its outputs finite, and one more
     call of each part on the card held to the same part on the CPU on the
-    same inputs.
+    same inputs;
+18. the row hash of a fit's duplicate-row test (``ops/csrc/row_hash.cu``,
+    a kernel the port added, which replaces no TPU kernel): bit for bit
+    against the host's ``_row_hashes`` at 1,300,000 x 50 and 70,000 x 784
+    (the benchmark's shapes) and at edge widths and views, one launch a
+    call; the fit's whole test on the card against ``deduplicate`` on the
+    host, with and without duplicate rows (numpy's row sort must run only
+    with them); its registers (``cuobjdump -res-usage``); and at the two
+    shapes the kernel's time beside its bound (one read of X), the sort of
+    its hashes, the whole test on the card, and the host's hash and test.
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
@@ -187,7 +196,8 @@ and runs phase 11 alone (~7 min). With ``--api`` it builds K1, K2 and K3,
 fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
 ``--examples`` it builds K1, K2 and K3 and runs phase 13 alone. With
 ``--bench`` it builds K1 and runs phase 14 alone. With ``--digits`` it
-builds K1, K2 and K3 and runs phase 17 alone. With
+builds K1, K2 and K3 and runs phase 17 alone. With ``--rowhash`` it
+builds the row hash alone and runs phase 18 alone (~1 min). With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
 in phase 3 and the general ones, the sharded row log-sum and its step as in
 phase 9, and stops (~1 min): the quick way to compare two versions of the
@@ -228,6 +238,16 @@ N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
 # the estimator draws at small n, and the IVF path's shape
 K1_SHAPES = ((60_000, 512, 2), (60_000, 512, 3), (1_000_000, 512, 2), (10_000, 2048, 2),
              (1_300_000, 512, 2))
+# The row hash (phase 18) is held to the host's _row_hashes bit for bit at
+# the benchmark's two shapes, widths on either side of its chunk of 32 words
+# and of a 16-byte group, rows whose word offset is not a multiple of 4, a
+# misaligned view and a strided one; it is timed at the two shapes beside its
+# bound (one read of X), the host's hash and the fit's whole duplicate test
+ROW_HASH_SHAPES = ((1_300_000, 50), (70_000, 784))
+ROW_HASH_EDGE = ((1, 1), (3, 2), (129, 50), (1_000, 1), (1_000, 3), (1_000, 4), (1_000, 5),
+                 (1_000, 31), (1_000, 32), (1_000, 33), (1_000, 36), (1_000, 63), (777, 784),
+                 (513, 785), (300, 1_000), (40_000, 7))
+ROW_HASH_REPEATS = 5  # host and whole-test times: medians of this many calls
 # The IVF path: BASELINE.json's "UMAP on 1.3M-cell scRNA-seq" at its 50
 # principal components, on clustered rows whose component j is scaled by
 # 1/(j + 1). That spectrum is an assumption, not taken from published
@@ -2138,7 +2158,8 @@ def traced_fit(torch, model, X, counters, smi: str) -> dict:
     counter set to 0 just before; fails unless each kernel of
     TRACED_KERNELS appears in the written trace as many times as its
     wrapper counted calls (so the wrapper's kernels per call times its
-    count in all), and its wrapper launched once a step or not at all."""
+    count in all), and its wrapper launched once a step or not at all, and
+    the row hash as ``dedup_launches`` says."""
     import glob
     import tempfile
 
@@ -2160,9 +2181,11 @@ def traced_fit(torch, model, X, counters, smi: str) -> dict:
     name = type(model).__name__
     rec = {"model": name, "n": X.shape[0], "steps": model.n_iter_, "wall_s": wall,
            "trace_mb": trace_mb, "kernel_events": len(kernels), "kernels": {}}
-    others = {k: v for k, v in launches.items() if k not in TRACED_KERNELS and v}
+    per_fit = dedup_launches(model)
+    others = {k: v for k, v in launches.items()
+              if k not in TRACED_KERNELS and v != per_fit.get(k, 0)}
     if others:
-        raise AssertionError(f"traced {name}: launches of {others}")
+        raise AssertionError(f"traced {name}: launches of {others}, per fit {per_fit}")
     for wrapper, globals_ in TRACED_KERNELS.items():
         calls = launches[wrapper]
         if calls not in (0, model.n_iter_):
@@ -2338,6 +2361,8 @@ def run_examples_path(torch, counters) -> dict:
                 "launches": launches}
         print("example " + json.dumps(line), flush=True)
         for name, count in launches.items():
+            if name == "row_hash":  # once a fit on the card; the scripts' fits are not counted
+                continue
             if (name in EXAMPLE_KERNELS[script]) != (count > 0):
                 raise AssertionError(f"example {script}: {name} launched {count} times")
         for name, fit in out.get("fits", {}).items():
@@ -2495,6 +2520,7 @@ def run_bench_path(torch, counters, X) -> dict:
                "knn10_label_acc": acc}
         print(f"{label} " + json.dumps(rec), flush=True)
         want = {name: (res["iters"] if name == "fused_shared_repulsion" else 0) for name in launches}
+        want["row_hash"] = 1  # one fit, on the card
         if launches != want or not np.all(np.isfinite(res["embedding"])):
             raise AssertionError(f"{label}: launches {launches} (want {want}) or a bad embedding")
         if acc < SINGLE_CELL_MIN_ACC:
@@ -2544,7 +2570,8 @@ def run_digits_path(torch, counters, smi: str) -> dict:
         yield
         torch.cuda.synchronize()
         watched.setdefault(name, []).append(
-            {"steps": model.n_iter_, "launches": {fn.__name__: fn.launches for fn in counters}})
+            {"steps": model.n_iter_, "launches": {fn.__name__: fn.launches for fn in counters},
+             "per_fit": dedup_launches(model)})
 
     res = real_digits.main([], watch=watch)
     failed = []
@@ -2569,6 +2596,7 @@ def run_digits_path(torch, counters, smi: str) -> dict:
         for one in watched[name]:
             want = {fn: (one["steps"] if fn in DIGITS_KERNELS[name] else 0)
                     for fn in one["launches"]}
+            want.update(one["per_fit"])
             if one["launches"] != want or (DIGITS_KERNELS[name] and one["steps"] == 0):
                 failed.append(f"{name}: launches {one['launches']} in {one['steps']} steps")
 
@@ -2601,13 +2629,126 @@ def run_digits_path(torch, counters, smi: str) -> dict:
     return {name: [one["launches"] for one in fits] for name, fits in watched.items()}
 
 
+def run_row_hash_path(torch, smi: str) -> dict:
+    """Phase 18: the row hash of the fit's duplicate test
+    (``ops/cuda/hash_kernel.row_hash``) bit for bit against the host's
+    ``_row_hashes`` at ROW_HASH_SHAPES and ROW_HASH_EDGE (random words, rows
+    with -0.0 beside 0.0, duplicated rows), a misaligned view and a strided
+    one, one launch a call; the fit's whole test on the card
+    (``deduplicate_fit_input``) against ``deduplicate`` on the host with
+    and without duplicates, numpy's row sort counted only where rows repeat;
+    then, at ROW_HASH_SHAPES, the kernel's time (CUDA events, eager and
+    replayed from a graph) beside its bound, the sort of its hashes, the
+    whole test on the card and the host's hash and test."""
+    from torchdr_tpu_torch.ops.cuda.build import library_path
+    from torchdr_tpu_torch.ops.cuda.hash_kernel import deduplicate_fit_input, row_hash
+    from torchdr_tpu_torch.utils.wrappers import _row_hashes, deduplicate
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def held(label, X):
+        before = row_hash.launches
+        got = row_hash(X).cpu().numpy().view(np.uint64)
+        if row_hash.launches != before + 1:
+            raise AssertionError(f"row hash {label}: {row_hash.launches - before} launches")
+        want = _row_hashes(X.cpu().numpy())
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"row hash {label}: {bad} of {len(want)} hashes differ")
+
+    cases = 0
+    for n, m in ROW_HASH_EDGE + ROW_HASH_SHAPES:
+        X = torch.randn((n, m), generator=gen, device="cuda")
+        held(f"{n}x{m}", X)
+        X[::3] = 0.0
+        X[1::3] = -0.0
+        X[n // 2:] = X[: n - n // 2].clone()  # duplicated rows
+        held(f"{n}x{m} zeros and duplicates", X)
+        # a contiguous view a row into its storage (16-byte aligned only
+        # where m % 4 == 0), one a word in (never aligned), a strided one
+        held(f"{n}x{m} row-offset view", torch.randn((n + 1, m), generator=gen, device="cuda")[1:])
+        flat = torch.randn((n * m + 1,), generator=gen, device="cuda")
+        held(f"{n}x{m} misaligned view", flat[1:].view(n, m))
+        held(f"{n}x{m} strided view", torch.randn((n, m + 3), generator=gen, device="cuda")[:, :m])
+        cases += 5
+
+    exact = []
+    for label, dup in (("distinct", False), ("duplicates", True)):
+        X_host = torch.randn((20_000, 50), generator=gen, device="cuda").cpu().numpy()
+        if dup:
+            X_host[10_000:15_000] = X_host[:5_000]
+        before = deduplicate.exact_calls
+        X_dev, inverse = deduplicate_fit_input(X_host, torch.from_numpy(X_host).cuda())
+        exact.append(deduplicate.exact_calls - before)
+        want, want_inv = deduplicate(X_host)
+        same = (inverse is None and want_inv is None and X_dev.shape == X_host.shape) or (
+            inverse is not None and want_inv is not None
+            and np.array_equal(X_dev.cpu().numpy(), want) and np.array_equal(inverse, want_inv))
+        if not same:
+            raise AssertionError(f"row hash: the fit's test on {label} rows is not deduplicate's")
+    if exact != [0, 1]:
+        raise AssertionError(f"row hash: numpy's row sort ran {exact} times (distinct, duplicates)")
+
+    def median_s(fn):
+        times = []
+        for _ in range(ROW_HASH_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    try:
+        res = subprocess.run(["cuobjdump", "-res-usage", str(library_path("row_hash"))],
+                             capture_output=True, text=True)
+        usage = [line.strip() for line in res.stdout.splitlines() if "REG:" in line]
+    except FileNotFoundError:
+        usage = ["cuobjdump not found"]
+    rec = {"kernel": "row_hash", "cases_bitwise_equal": cases, "exact_calls": exact,
+           "res_usage": usage, "card": smi, "shapes": []}
+    for n, m in ROW_HASH_SHAPES:
+        X = torch.randn((n, m), generator=gen, device="cuda")
+        X_host = X.cpu().numpy()
+        h = row_hash(X)
+        bound_ms = (4 * n * m + 8 * n) / H100_BYTES_PER_S * 1e3
+        eager = cuda_time_ms(lambda: row_hash(X), reps=50)
+        graph = graph_ms(lambda: row_hash(X))
+        eager_after = cuda_time_ms(lambda: row_hash(X), reps=200)  # the card's clocks up by now
+        sort_ms = cuda_time_ms(lambda: torch.sort(h), reps=20)
+        rec["shapes"].append({
+            "n": n, "m": m, "bytes": 4 * n * m + 8 * n, "bound_ms": bound_ms,
+            "kernel_ms": eager, "kernel_graph_ms": graph, "kernel_ms_after_graph": eager_after,
+            "over_bound": min(eager, eager_after) / bound_ms,
+            "sort_ms": sort_ms,
+            "dedup_on_card_s": median_s(lambda: deduplicate_fit_input(X_host, X)),
+            "host_row_hashes_s": median_s(lambda: _row_hashes(X_host)),
+            "host_deduplicate_s": median_s(lambda: deduplicate(X_host)),
+        })
+        print(f"row hash {n}x{m}: kernel {eager:.4f} ms, {eager_after:.4f} after the graph's "
+              f"{graph:.4f}; bound "
+              f"{bound_ms:.4f} ms ({smi})", flush=True)
+    print("row hash " + json.dumps(rec), flush=True)
+    return rec
+
+
+def dedup_launches(model) -> dict:
+    """The launches a fit makes once, not once a step: the row hash of its
+    duplicate-row test, once where ``process_duplicates`` held on a CUDA
+    device (read after the fit: precomputed affinities turn it off)."""
+    on_card = getattr(getattr(model, "device_", None), "type", None) == "cuda"
+    return {"row_hash": int(bool(getattr(model, "process_duplicates", False)) and on_card)}
+
+
 def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False) -> dict:
     """One fit on the card with every launch counter set to 0 just before
     and read just after; fails unless each kernel in ``expect`` launched
     once per step (or, where ``expect`` maps names to counts, that many
-    times per step) and the others not at all, on a bad embedding, or below
-    ``min_acc`` 10-NN label accuracy (None: no gate). ``scores`` adds the
-    port's own eval scores of the embedding."""
+    times per step), each of ``dedup_launches`` that many times in the fit,
+    and the others not at all, on a bad embedding, or below ``min_acc``
+    10-NN label accuracy (None: no gate). ``scores`` adds the port's own
+    eval scores of the embedding."""
     if not isinstance(expect, dict):
         expect = {name: 1 for name in expect}
     torch.cuda.synchronize()
@@ -2622,7 +2763,13 @@ def run_fit(torch, model, X, labels, counters, expect, min_acc=0.9, scores=False
     name = type(model).__name__
     if Z.shape != (X.shape[0], model.n_components) or not np.all(np.isfinite(Z)):
         raise AssertionError(f"{name}: embedding has shape {Z.shape} or non-finite values")
+    per_fit = dedup_launches(model)
     for fn_name, count in launches.items():
+        if fn_name in per_fit:
+            if count != per_fit[fn_name]:
+                raise AssertionError(f"{name}: {fn_name} launched {count} times in the fit, "
+                                     f"not {per_fit[fn_name]}")
+            continue
         want = model.n_iter_ * expect[fn_name] if fn_name in expect else 0
         if count != want or (fn_name in expect and count == 0):
             raise AssertionError(f"{name}: {fn_name} launched {count} times in {model.n_iter_} steps")
@@ -2761,10 +2908,11 @@ def main() -> int:
         rowlse_fwd,
         rowlse_fwd_general,
     )
+    from torchdr_tpu_torch.ops.cuda.hash_kernel import row_hash
     from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
 
     counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
-                rowlse_bwd_general, *(kernel for _, kernel, _, _ in gather_kernels()))
+                rowlse_bwd_general, *(kernel for _, kernel, _, _ in gather_kernels()), row_hash)
 
     # 1. device
     smi = nvidia_smi_line()
@@ -2789,11 +2937,14 @@ def main() -> int:
     examples_only = "--examples" in sys.argv[1:]
     bench_only = "--bench" in sys.argv[1:]
     digits_only = "--digits" in sys.argv[1:]
+    rowhash_only = "--rowhash" in sys.argv[1:]
     t0 = time.perf_counter()
     if ne_only or spectral_only:
         libs = []  # phases 5 and 8 launch no kernel
     elif rowlse_only:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
+    elif rowhash_only:
+        libs = build_libraries(["row_hash"])
     elif mesh_only or engine_only or api_only or examples_only or digits_only:
         libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
     elif k1_only or gather_only or ivf_only or tiers_only or bench_only:
@@ -2803,6 +2954,10 @@ def main() -> int:
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--sass" in sys.argv[1:]:
         sass_report(libs)
+    if rowhash_only:
+        run_row_hash_path(torch, smi)
+        print(smi, flush=True)
+        return 0
     if gather_only:
         run_gather_path(torch, counters, check_gather(torch))
         print(smi, flush=True)
@@ -2943,7 +3098,18 @@ def main() -> int:
                                   for model, fits in digits.items()
                                   if any(fit[name] for fit in fits)}
 
-    print(json.dumps({"kernels": [k1, k2, k3, *gathers]}), flush=True)
+    # 18. the row hash of the fits' duplicate-row test
+    rowhash = run_row_hash_path(torch, smi)
+    rowhash["launches"] = umap["launches"]["row_hash"]  # phase 4's UMAP fit
+    rowhash["fit_launches"] = {fit["model"]: fit["launches"]["row_hash"]
+                               for fit in (umap, tsne, sne)}
+    rowhash["bench_launches"] = {label: benches[label]["launches"]["row_hash"]
+                                 for label in ("umap_single_cell",
+                                               "umap_single_cell --distributed")}
+    rowhash["digits_launches"] = {model: [fit["row_hash"] for fit in fits]
+                                  for model, fits in digits.items()}
+
+    print(json.dumps({"kernels": [k1, k2, k3, *gathers, rowhash]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

@@ -1225,3 +1225,105 @@ def test_device_trace_sees_k1_once_a_step(cuda, tmp_path):
                and "repulsion_kernel" in e.get("name", "")]
     assert launches == model.n_iter_ > 0
     assert len(kernels) == launches
+
+
+ROW_HASH_SHAPES = [(1_300_000, 50), (70_000, 784), (1, 1), (129, 50), (1_000, 3), (1_000, 33),
+                   (1_000, 36), (513, 785), (300, 1_000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ROW_HASH_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_row_hash_is_the_host_hash_bit_for_bit(cuda, shape):
+    """The row-hash kernel gives ``_row_hashes``' uint64 hashes exactly, at
+    the benchmark's two shapes and at widths on either side of its chunk of
+    32 words and of a 16-byte group, on a contiguous tensor, a view that
+    starts a word into its storage and a strided one; one launch a call."""
+    from torchdr_tpu_torch.ops.cuda.hash_kernel import row_hash
+    from torchdr_tpu_torch.utils.wrappers import _row_hashes
+
+    n, m = shape
+    rng = np.random.default_rng(n + m)
+    X = rng.normal(size=(n, m + 1)).astype(np.float32)
+    X[: n // 3, :m] = 0.0
+    X[n // 3: 2 * (n // 3), :m] = -0.0
+    want = _row_hashes(X[:, :m])
+    flat = torch.from_numpy(np.concatenate([[0.0], X[:, :m].ravel()]).astype(np.float32)).to(cuda)
+    for view in (torch.from_numpy(np.ascontiguousarray(X[:, :m])).to(cuda),
+                 flat[1:].view(n, m), torch.from_numpy(X).to(cuda)[:, :m]):
+        before = row_hash.launches
+        got = row_hash(view).cpu().numpy().view(np.uint64)
+        assert row_hash.launches == before + 1
+        assert np.array_equal(got, want)
+
+
+def _clustered_with(n_dup, seed):
+    rng = np.random.default_rng(seed)
+    X = (rng.normal(scale=4.0, size=(4, 16))[rng.integers(0, 4, 2000)]
+         + rng.normal(size=(2000, 16))).astype(np.float32)
+    if n_dup:
+        X[-n_dup:] = X[:n_dup]
+    return X
+
+
+@pytest.mark.cuda
+def test_row_hash_launches_once_a_cuda_fit(cuda):
+    """A CUDA fit of distinct rows decides on the card: one row-hash launch,
+    no numpy row sort, the fit's input the copy already there."""
+    from torchdr_tpu_torch.ops.cuda.hash_kernel import row_hash
+    from torchdr_tpu_torch.utils.wrappers import deduplicate
+
+    X = _clustered_with(0, 10)
+    launches, exact = row_hash.launches, deduplicate.exact_calls
+    model = UMAP(random_state=0, max_iter=20)
+    model.fit_transform(X)
+    assert row_hash.launches == launches + 1
+    assert deduplicate.exact_calls == exact
+    assert model.n_samples_in_ == X.shape[0]
+    assert [k for k in model.timings_ if k.startswith("api.")] == [
+        "api.check", "api.h2d", "api.dedup", "api.d2h"]
+
+
+@pytest.mark.cuda
+def test_cuda_fit_with_duplicates_maps_them_back(cuda):
+    """A CUDA fit of rows that repeat: the hashes collide, numpy's row sort
+    runs once, the fit sees the host's unique rows, and each duplicate gets
+    its original's embedding row."""
+    from torchdr_tpu_torch.ops.cuda.hash_kernel import deduplicate_fit_input, row_hash
+    from torchdr_tpu_torch.utils.wrappers import deduplicate
+
+    X = _clustered_with(100, 11)
+    X_unique, inverse = deduplicate(X)
+    launches, exact = row_hash.launches, deduplicate.exact_calls
+    got, got_inv = deduplicate_fit_input(X, torch.from_numpy(X).to(cuda))
+    assert row_hash.launches == launches + 1 and deduplicate.exact_calls == exact + 1
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), X_unique) and np.array_equal(got_inv, inverse)
+    model = UMAP(random_state=0, max_iter=20)
+    Z = model.fit_transform(X)
+    assert model.n_samples_in_ == X_unique.shape[0] == X.shape[0] - 100
+    assert np.array_equal(Z[-100:], Z[:100])
+
+
+@pytest.mark.cuda
+def test_a_forced_hash_collision_on_the_card_takes_the_exact_path(cuda, monkeypatch):
+    """Every hash on the card the same: the fit's test takes numpy's row
+    sort once, with ``deduplicate``'s result under the same collision on
+    the host (rows that differ only in a zero's sign merge there)."""
+    from torchdr_tpu_torch.ops.cuda import hash_kernel
+    from torchdr_tpu_torch.utils import wrappers
+
+    X = _clustered_with(0, 12)
+    X[1] = 0.0
+    X[2] = -0.0
+    monkeypatch.setattr(hash_kernel, "row_hash",
+                        lambda X_dev: torch.zeros(X_dev.shape[0], dtype=torch.int64,
+                                                  device=X_dev.device))
+    monkeypatch.setattr(wrappers, "_row_hashes",
+                        lambda Xn: np.zeros(Xn.shape[0], dtype=np.uint64))
+    X_unique, inverse = wrappers.deduplicate(X)
+    exact = wrappers.deduplicate.exact_calls
+    got, got_inv = hash_kernel.deduplicate_fit_input(X, torch.from_numpy(X).to(cuda))
+    assert wrappers.deduplicate.exact_calls == exact + 1
+    assert got.device.type == "cuda" and got.shape[0] == X.shape[0] - 1
+    assert np.array_equal(got.cpu().numpy(), X_unique) and np.array_equal(got_inv, inverse)
+    assert got_inv[1] == got_inv[2]

@@ -87,7 +87,7 @@ class AffinityMatcher(DRModule):
 
     ``timings_`` holds the wall seconds of the last fit's spans, those on
     the device synchronised at their end: ``DRModule.fit_transform``'s
-    ("fit", "api.check", "api.dedup", "api.h2d", "api.d2h"), and the phases
+    ("fit", "api.check", "api.h2d", "api.dedup", "api.d2h"), and the phases
     "affinity" (the whole input affinity, kNN included), "knn" (the kNN
     build inside it; with ``knn_mode="ivf"`` on one device "knn.build",
     the index, and "knn.search"), "init" and "optimize", which holds

@@ -21,7 +21,7 @@ import torch
 
 from .utils.logger import get_logger
 from .utils.profiling import fit_span, span
-from .utils.wrappers import deduplicate, full_float32, restore_format, to_host, validate_2d
+from .utils.wrappers import full_float32, restore_format, to_host, validate_2d
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -105,8 +105,8 @@ class DRModule(BaseEstimator, ABC):
     random_state : int, optional
         Seed of the root ``torch.Generator``.
     process_duplicates : bool, default=True
-        Deduplicate identical rows on the host before fitting and map the
-        embedding back.
+        Deduplicate identical rows before fitting and map the embedding
+        back.
     """
 
     def __init__(
@@ -161,16 +161,20 @@ class DRModule(BaseEstimator, ABC):
     def fit_transform(self, X, y: Optional[Any] = None):
         """Fit the model and return the embedding.
 
-        Validation and deduplication run on the host array, before the
-        single push to the device; duplicate rows are mapped back through
-        the inverse index.
+        Validation runs on the host array, before the single push to the
+        device; deduplication (with ``process_duplicates``) after it, on
+        the device's copy: on a CUDA device the rows are hashed on the card
+        and numpy's row sort runs on the host array only where two hashes
+        collide (``ops/cuda/hash_kernel.deduplicate_fit_input``). Duplicate rows
+        are mapped back through the inverse index.
 
         ``timings_`` holds the wall seconds of the last fit's spans
-        (``utils/profiling.py``): "fit", the whole call, synchronised at its
-        end; "api.check" (the conversion to a host array and its checks),
-        "api.dedup" (with ``process_duplicates``), "api.h2d" (the copy to
-        the device, synchronised) and "api.d2h" (the inverse gather and the
-        result in the caller's format); subclasses add their phases.
+        (``utils/profiling.py``), in this order: "fit", the whole call,
+        synchronised at its end; "api.check" (the conversion to a host
+        array and its checks), "api.h2d" (the copy to the device,
+        synchronised), "api.dedup" (with ``process_duplicates``;
+        synchronised) and "api.d2h" (the inverse gather and the result in
+        the caller's format); subclasses add their phases.
         """
         device = self._resolve_device()
         self.timings_ = {}
@@ -179,18 +183,21 @@ class DRModule(BaseEstimator, ABC):
                 X_host, fmt = to_host(X)
                 validate_2d(X_host)
             self._input_format_ = fmt
+            with span("api.h2d", device):
+                X_dev = torch.from_numpy(np.ascontiguousarray(X_host)).to(device)
 
             inverse = None
             if self.process_duplicates:
-                with span("api.dedup"):
-                    X_host, inverse = deduplicate(X_host)
+                # imported here: the ops package imports this module
+                from .ops.cuda.hash_kernel import deduplicate_fit_input
+
+                with span("api.dedup", device):
+                    X_dev, inverse = deduplicate_fit_input(X_host, X_dev)
                 if inverse is not None:
                     self.logger.info(
-                        f"Detected {inverse.shape[0] - X_host.shape[0]} duplicate "
+                        f"Detected {inverse.shape[0] - X_dev.shape[0]} duplicate "
                         "samples, performing DR on unique data."
                     )
-            with span("api.h2d", device):
-                X_dev = torch.from_numpy(np.ascontiguousarray(X_host)).to(device)
             emb = self._fit_transform(X_dev, y=y)
             with span("api.d2h"):
                 if inverse is not None:

@@ -64,6 +64,9 @@ SIGNATURES = {
         "bucket_onehot": _GATHER,
         "bucket_2level": [*_GATHER[:-1], _I, _V],  # ..., c, grp, stream
     },
+    "row_hash": {
+        "row_hash": [_V, _V, _I, _I, _V],  # X, out, n, m, stream
+    },
 }
 
 _LOADED: Dict[str, object] = {}  # function -> the bound entry point

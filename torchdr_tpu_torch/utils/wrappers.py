@@ -94,8 +94,8 @@ def to_torch(
 def to_host(X: Any, dtype=np.float32) -> Tuple[np.ndarray, str]:
     """Normalize input to a host numpy array; returns (array, format).
 
-    The host-side twin of :func:`to_torch`, for pre-fit work (validation,
-    deduplication) done before the single push to the device.
+    The host-side twin of :func:`to_torch`, for the pre-fit checks done
+    before the single push to the device, and numpy's duplicate-row test.
     """
     if isinstance(X, torch.Tensor):
         return np.asarray(X.detach().cpu().numpy(), dtype=dtype), "torch"
@@ -131,19 +131,43 @@ def _row_hashes(Xn: np.ndarray) -> np.ndarray:
     return acc
 
 
+def _hashable(Xn: np.ndarray) -> bool:
+    """Whether the rows' bytes split into whole 32-bit words, the row hash's."""
+    return (Xn.dtype.itemsize * Xn.shape[1]) % 4 == 0 and Xn.shape[1] > 0
+
+
+def _exact_deduplicate(X, Xn: np.ndarray):
+    """numpy's row sort: the exact path, taken where the row hashes cannot
+    show all rows distinct. Counted in ``deduplicate.exact_calls``."""
+    deduplicate.exact_calls += 1
+    X_unique, inverse = np.unique(Xn, axis=0, return_inverse=True)
+    if X_unique.shape[0] == Xn.shape[0]:
+        return X, None
+    return X_unique, inverse.reshape(-1)
+
+
 def deduplicate(X: np.ndarray):
     """Host-side duplicate-row removal, in numpy.
 
     Returns (X_unique, inverse_indices or None). A row-hash prefilter
     decides duplicate-freeness first (equal rows have equal hashes), so the
-    common case skips numpy's lexicographic row sort.
+    common case skips numpy's lexicographic row sort. The prefilter compares
+    bytes (a row of -0.0 hashes unlike one of 0.0); the row sort, run only
+    where two hashes collide, compares floats.
+
+    A fit (``DRModule.fit_transform``) calls it on the CPU. On a CUDA
+    device the fit hashes the rows on the card after their copy there
+    (``ops/cuda/hash_kernel.deduplicate_fit_input``; its kernel's launches
+    are counted in ``row_hash.launches``) and takes the same row sort only
+    where two hashes collide, with the same result.
+    ``deduplicate.exact_calls`` counts the row sorts of both.
     """
     Xn = np.asarray(X)
-    if (Xn.dtype.itemsize * Xn.shape[1]) % 4 == 0 and Xn.shape[1] > 0:
+    if _hashable(Xn):
         h = _row_hashes(Xn)
         if np.unique(h).shape[0] == Xn.shape[0]:
             return X, None
-    X_unique, inverse = np.unique(Xn, axis=0, return_inverse=True)
-    if X_unique.shape[0] == Xn.shape[0]:
-        return X, None
-    return X_unique, inverse.reshape(-1)
+    return _exact_deduplicate(X, Xn)
+
+
+deduplicate.exact_calls = 0
