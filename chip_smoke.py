@@ -637,29 +637,32 @@ def k1_inputs(torch, gen, n: int, S: int, d: int, neg=None):
     return Z, neg, w
 
 
-def hold_k1(torch, label, Z, neg, w, a, b, eps=1e-3) -> tuple:
+def hold_k1(torch, label, Z, neg, w, a, b, eps=1e-3, row0=0, rows=None) -> tuple:
     """One K1 case against the float64 evaluation and the plain version, at
-    the three limits stated beside ``TOL_K1``. Returns max |kernel - plain|
-    and the time of the one plain call."""
+    the three limits stated beside ``TOL_K1``, over rows ``[row0, row0 +
+    rows)`` of Z (all of them by default; ``w`` those rows' weights).
+    Returns max |kernel - plain| and the time of the one plain call."""
     from torchdr_tpu_torch.ops.cuda.umap_kernel import (
         fused_shared_repulsion,
         shared_repulsion_plain,
     )
 
-    got = fused_shared_repulsion(Z, neg, w, a, b, eps)
+    got = fused_shared_repulsion(Z, neg, w, a, b, eps, row0=row0, rows=rows)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    plain = shared_repulsion_plain(Z, neg, w, a, b, eps)
+    plain = shared_repulsion_plain(Z, neg, w, a, b, eps, row0=row0, rows=rows)
     end.record()
-    ref = shared_repulsion_plain(Z.double(), neg, w.double(), a, b, eps)
+    ref = shared_repulsion_plain(Z.double(), neg, w.double(), a, b, eps, row0=row0, rows=rows)
     torch.cuda.synchronize()
     e_plain = float((got - plain).abs().max())
     e_64 = float((got.double() - ref).abs().max())
     plain_64 = float((plain.double() - ref).abs().max())
     lim_64 = min(K1_HARD, 3.0 * max(plain_64, 2e-6))
     n, d = Z.shape
+    part = "" if rows is None else f" rows=[{row0}, {row0 + rows})"
     print(
-        f"K1 {label}: n={n} S={neg.shape[0]} d={d} eps={eps:g} max|kernel-plain|={e_plain:.3e} "
+        f"K1 {label}: n={n}{part} S={neg.shape[0]} d={d} eps={eps:g} "
+        f"max|kernel-plain|={e_plain:.3e} "
         f"(limit {TOL_K1:.1e}) max|kernel-float64|={e_64:.3e} (limit {lim_64:.1e}) "
         f"max|plain-float64|={plain_64:.3e}",
         flush=True,
@@ -678,6 +681,8 @@ def check_k1(torch, gen, a: float, b: float) -> dict:
     then its times (:func:`time_k1`). ``gen`` draws the cases that the
     script has always had, so the later phases see the inputs they always
     saw; the newer cases draw from a generator of their own."""
+    from torchdr_tpu_torch.parallel.mesh import chunk_bounds
+
     dev = torch.device("cuda")
     gen_new = torch.Generator(device="cuda")
     gen_new.manual_seed(SEED + 1)
@@ -706,6 +711,16 @@ def check_k1(torch, gen, a: float, b: float) -> dict:
     # int32 ids, as the estimator's sampler may hand them
     Z, neg, w = k1_inputs(torch, gen_new, 5003, 301, 2)
     worst = max(worst, hold_k1(torch, "int32 ids, ragged S", Z, neg.int(), w, a, b)[0])
+    # a 4-card mesh's shards of the 1.3M-row cell: each its rows' range
+    # against all of Z, from a generator of its own
+    gen_mesh = torch.Generator(device="cuda")
+    gen_mesh.manual_seed(SEED + 2)
+    Z, neg, w = k1_inputs(torch, gen_mesh, N_IVF, S_MAIN, 2)
+    for r in range(MESH_WORLD):
+        row0, rows = chunk_bounds(N_IVF, MESH_WORLD, r)
+        worst = max(worst, hold_k1(torch, f"mesh shard {r}", Z, neg, w[row0 : row0 + rows], a, b,
+                                   row0=row0, rows=rows)[0])
+    del Z, neg, w
     return time_k1(torch, gen_new, a, b, first, worst)
 
 
@@ -1080,8 +1095,9 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
     sne = run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, mesh=mesh), X10, labels10,
                   counters, expect=general_counts)
     compare_affinities(torch, "UMAP", UMAP, X, mesh)
+    # the step row-sharded: K1 once a shard a step, replayed from CUDA graphs
     umap = run_fit(torch, UMAP(random_state=0, mesh=mesh), X, labels, counters,
-                   expect=("fused_shared_repulsion",))
+                   expect={"fused_shared_repulsion": len(mesh)})
     if single is None:  # the same fits without the mesh, as phase 4 runs them
         single = {
             "UMAP": run_fit(torch, UMAP(random_state=0), X, labels, counters,
@@ -1101,6 +1117,8 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
         cards = make_mesh()
         run_fit(torch, TSNE(random_state=0, mesh=cards), X10, labels10, counters,
                 expect={"rowlse_fwd_general": len(cards), "rowlse_bwd_general": len(cards)})
+        run_fit(torch, UMAP(random_state=0, mesh=cards), X, labels, counters,
+                expect={"fused_shared_repulsion": len(cards)})
     else:
         print("mesh of the real cards: skipped, one card visible", flush=True)
     general["K2"]["launches"] = tsne["launches"]["rowlse_fwd_general"]
@@ -2519,7 +2537,10 @@ def run_bench_path(torch, counters, X) -> dict:
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
                "knn10_label_acc": acc}
         print(f"{label} " + json.dumps(rec), flush=True)
-        want = {name: (res["iters"] if name == "fused_shared_repulsion" else 0) for name in launches}
+        # --distributed: a mesh of every visible card, K1 once a card a step
+        cards = torch.cuda.device_count() if argv else 1
+        want = {name: (cards * res["iters"] if name == "fused_shared_repulsion" else 0)
+                for name in launches}
         want["row_hash"] = 1  # one fit, on the card
         if launches != want or not np.all(np.isfinite(res["embedding"])):
             raise AssertionError(f"{label}: launches {launches} (want {want}) or a bad embedding")

@@ -110,9 +110,9 @@ def test_bands_visit_the_prefix_of_the_step_s_trailing_zeros(band_states):
     seen = []
     orig = tm._attr_core
 
-    def spy(Z, NN, eps, period, it):
+    def spy(Z, NN, eps, period, it, *rest):
         seen.append(NN.shape[1])
-        return orig(Z, NN, eps, period, it)
+        return orig(Z, NN, eps, period, it, *rest)
 
     tm._attr_core = spy
     Z = torch.from_numpy(arrays["init_embedding"])

@@ -38,9 +38,10 @@ from torchdr_tpu_torch.ops.reduce import (
     pairwise_logkernel_rowlse,
     pairwise_logkernel_rowlse_sharded,
 )
-from torchdr_tpu_torch.parallel import make_mesh
+from torchdr_tpu_torch.parallel import chunk_bounds, make_mesh
 from torchdr_tpu_torch.ops.cuda.umap_kernel import (
     fused_shared_repulsion,
+    repulsion_grid,
     rows_per_tile,
     shared_repulsion_plain,
 )
@@ -145,6 +146,112 @@ def test_k1_rejects_wide_embeddings_on_the_card(cuda):
     Z = torch.zeros((16, 9), device=cuda)
     with pytest.raises(ValueError, match="d <= 8"):
         fused_shared_repulsion(Z, torch.arange(4, device=cuda), torch.ones(16, device=cuda), A, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, S, d, eps", [
+    (5003, 512, 2, EPS), (5003, 512, 3, EPS), (5003, 512, 8, EPS), (3000, 2048, 2, EPS),
+    (5003, 6000, 2, 0.0), (1_300_000, 512, 2, EPS),
+], ids=["5003-512-2", "5003-512-3", "5003-512-8", "lanes", "tiles-eps0", "1.3M"])
+def test_k1_row_ranges_side_by_side_are_one_launch(cuda, n, S, d, eps):
+    """K1 over rows [row0, row0 + rows): the range (0, n) is the default
+    launch, and the four shards' ranges of a mesh, side by side, give its
+    bits. "lanes": at 3,000 rows a row's negatives are split over several
+    lanes, which the wrapper takes from Z's n for every range."""
+    Z, neg, w = _k1_inputs(cuda, n, S, d, seed=n + S + d)
+    if n < 10_000:
+        _hold_k1(Z, neg, w, eps)
+    if n == 3000:
+        assert repulsion_grid(n, S, d, sm_count(Z.device.index))[0] > 1
+    whole = fused_shared_repulsion(Z, neg, w, A, B, eps)
+    before = fused_shared_repulsion.launches
+    assert torch.equal(fused_shared_repulsion(Z, neg, w, A, B, eps, row0=0, rows=n), whole)
+    parts = [fused_shared_repulsion(Z, neg, w[r0 : r0 + rows], A, B, eps, row0=r0, rows=rows)
+             for r0, rows in (chunk_bounds(n, 4, r) for r in range(4))]
+    assert fused_shared_repulsion.launches == before + 5
+    assert [p.shape[0] for p in parts] == [chunk_bounds(n, 4, r)[1] for r in range(4)]
+    assert torch.equal(torch.cat(parts), whole)
+    with pytest.raises(ValueError, match="do not lie"):
+        fused_shared_repulsion(Z, neg, w[:10], A, B, row0=n - 5, rows=10)
+
+
+def _umap_pre_loop(model, X):
+    """(consts, carry0) of ``model``'s fit of X, the loop left out."""
+    state = {}
+
+    def capture(Z0, consts, carry0):
+        state.update(consts=consts, carry0=carry0)
+        return Z0, 0, 0.0
+
+    model._optimize = capture
+    model.fit_transform(X)
+    return state["consts"], state["carry0"]
+
+
+def _sharded_step_against_one_card(mesh, schedule, n=20_000, its=(0, 1, 2, 5, 8, 64, 1, 2, 64)):
+    """The row-sharded UMAP step over ``mesh`` and the one-card step at the
+    same Z, consts, carry and negatives: the gradient and the fire counts
+    equal bit for bit, the shards run eagerly and replayed from CUDA graphs
+    (the first step eager, a variant's first step captured, its later steps
+    replayed), with K1 launched once a shard a step."""
+    rng = np.random.default_rng(5)
+    centers = rng.normal(scale=6.0, size=(8, 16))
+    X = (centers[rng.integers(0, 8, n)] + rng.normal(size=(n, 16))).astype(np.float32)
+    kw = {"groups": dict(edge_schedule="groups", edge_groups=4),
+          "exact": dict(edge_schedule="exact"), "bands": dict(edge_schedule="bands")}[schedule]
+    model = UMAP(n_neighbors=15, max_iter=100, random_state=0, mesh=mesh, **kw)
+    consts, carry = _umap_pre_loop(model, X)
+    assert [s["device"] for s in consts["shards"]] == list(mesh.devices)
+    assert "graphs" in consts
+    one = {k: v for k, v in consts.items() if k not in ("shards", "graphs")}
+    eager = {k: v for k, v in consts.items() if k != "graphs"}
+    first = mesh.devices[0]
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, 2))).astype(np.float32)).to(first)
+    for it in its:
+        neg = torch.from_numpy(rng.integers(0, n, 512)).to(first)
+        g_one, c_one = model._gradients(Z, one, dict(carry), it, 1.0, neg)
+        for way in (eager, consts):
+            before = fused_shared_repulsion.launches
+            g, c = model._gradients(Z, way, dict(carry), it, 1.0, neg)
+            assert fused_shared_repulsion.launches == before + len(mesh)
+            assert g.device == c["active_edges"].device == first
+            assert torch.equal(c["active_edges"], c_one["active_edges"]), (it, way is consts)
+            assert torch.equal(g, g_one), (it, way is consts)
+        Z = Z - 0.5 * g_one  # the next step at another state
+    assert consts["graphs"].graphs  # the replays ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["groups", "exact", "bands"])
+def test_umap_sharded_step_on_one_card_is_the_one_card_step(cuda, schedule):
+    _sharded_step_against_one_card(make_mesh(devices=["cuda:0"] * 4), schedule)
+
+
+@pytest.mark.cuda
+def test_umap_sharded_step_across_cards_is_the_one_card_step(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: the step across distinct cards")
+    _sharded_step_against_one_card(make_mesh(), "groups")
+
+
+@pytest.mark.cuda
+def test_umap_fit_across_cards(cuda):
+    """``UMAP(distributed=True)`` over every card, on the IVF: K1 once a
+    shard a step, and the mesh's spans in ``timings_``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: a fit across distinct cards")
+    from torchdr_tpu_torch import IVF
+
+    rng = np.random.default_rng(6)
+    centers = rng.normal(scale=8.0, size=(8, 16))
+    X = (centers[rng.integers(0, 8, 30_000)] + rng.normal(size=(30_000, 16))).astype(np.float32)
+    fused_shared_repulsion.launches = 0
+    model = UMAP(n_neighbors=15, max_iter=100, random_state=0, knn_mode=IVF, distributed=True)
+    Z = model.fit_transform(X)
+    world = torch.cuda.device_count()
+    assert fused_shared_repulsion.launches == world * model.n_iter_
+    assert {"knn.build", "knn.replicate", "knn.shards", "affinity.exchange"} <= set(model.timings_)
+    assert Z.shape == (30_000, 2) and np.all(np.isfinite(Z))
 
 
 @pytest.mark.cuda

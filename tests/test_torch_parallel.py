@@ -30,8 +30,16 @@ Tolerances:
 - a t-SNE/SNE mesh fit of 10 steps from the JAX package's mesh fit's
   pre-loop state: abs 1e-5 on the embedding, as the single-device loop
   test; a 300-step t-SNE mesh fit on two-moons: silhouette > 0.15 (the JAX
-  package's test); a 200-step UMAP mesh fit within 1e-2 of the port's
-  single-device fit (the JAX package's bound between its two fits).
+  package's test); a 200-step UMAP mesh fit equal to the port's
+  single-device fit (the JAX package's bound between its two fits was
+  1e-2; the port's row-sharded step is the one-device step);
+- UMAP's row-sharded step against the one-device step at the same state:
+  the fire counts equal, the gradient within one float32 spacing of the
+  widest row (``test_umap_sharded_step_is_the_one_device_step``), and a
+  shard's step with the counter and the edge group as tensors equal to
+  its step;
+  against ``perfbench/reference/gradient.py`` in float64: widest row gap
+  1e-5, float32 arithmetic's (the reference rounds nothing).
 """
 
 import jax
@@ -512,7 +520,84 @@ def test_umap_mesh_fit_matches_the_single_device_fit(mesh):
                      device="cpu")
         Z2 = model.fit_transform(X)
     assert model.affinity_in._active_mesh() is mesh
-    assert np.abs(Z1 - Z2).max() < 1e-2
+    np.testing.assert_array_equal(Z1, Z2)
+
+
+def _umap_pre_loop(model, X):
+    """(Z0, consts, carry0) of ``model``'s fit of X, the loop left out."""
+    state = {}
+
+    def capture(Z0, consts, carry0):
+        state.update(Z0=Z0, consts=consts, carry0=carry0)
+        return Z0, 0, 0.0
+
+    model._optimize = capture
+    with one_torch_thread():
+        model.fit_transform(X)
+    return state["Z0"], state["consts"], state["carry0"]
+
+
+def _umap_rows(n=1200, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=6.0, size=(6, 8))
+    return (centers[rng.integers(0, 6, n)] + rng.normal(size=(n, 8))).astype(np.float32)
+
+
+SCHEDULES = {"groups": dict(edge_schedule="groups", edge_groups=3),
+             "exact": dict(edge_schedule="exact"), "bands": dict(edge_schedule="bands")}
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_umap_sharded_step_is_the_one_device_step(schedule):
+    """On a 4-way CPU mesh the step is row-sharded (``consts["shards"]``);
+    at the same Z, consts, carry and negatives it gives the one-device
+    step's fire counts exactly and its gradient within one float32 spacing
+    of the widest row: no row's sum is split across shards, so only a
+    reduction that tiled a shard's rows differently could round a row
+    otherwise."""
+    mesh4 = make_mesh(devices=["cpu"] * 4)
+    model = UMAP(n_neighbors=15, max_iter=100, random_state=0, mesh=mesh4, device="cpu",
+                 **SCHEDULES[schedule])
+    _, consts, carry = _umap_pre_loop(model, _umap_rows())
+    assert [(s["row0"], s["rows"]) for s in consts["shards"]] == [
+        chunk_bounds(1200, 4, r) for r in range(4)]
+    one = {k: v for k, v in consts.items() if k != "shards"}
+    Z = torch.from_numpy(_Z(1200, scale=3.0, seed=2))
+    for it in (0, 1, 2, 5, 8, 64):
+        neg = torch.from_numpy(np.random.default_rng(it).integers(0, 1200, 512))
+        g_mesh, c_mesh = model._gradients(Z, consts, dict(carry), it, 1.0, neg)
+        g_one, c_one = model._gradients(Z, one, dict(carry), it, 1.0, neg)
+        assert torch.equal(c_mesh["active_edges"], c_one["active_edges"])
+        spacing = torch.finfo(torch.float32).eps * float(g_one.abs().amax(1).max())
+        torch.testing.assert_close(g_mesh, g_one, atol=spacing, rtol=0)
+        # the step counter and the edge group as tensors, as a captured CUDA
+        # graph takes them: the same integers in float32, the same bits
+        graph_inputs = {"now": torch.tensor(float(it + 1)),
+                        "group": torch.tensor([it % consts["edge_groups_G"]])}
+        for shard in consts["shards"]:
+            want = model._shard_step(Z, neg, shard, it, 1.0)
+            got = model._shard_step(Z, neg, dict(shard, **graph_inputs), it, 1.0)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_umap_sharded_step_matches_the_reference_gradient_in_float64():
+    """The sharded step at 2,000 rows against the harness's plain float64
+    UMAP gradient at the same edges, fire counts and negatives."""
+    from perfbench.reference.gradient import umap_step
+    from perfbench.watch import widest_row_gap
+
+    model = UMAP(n_neighbors=15, max_iter=100, random_state=0, edge_groups=4,
+                 mesh=make_mesh(devices=["cpu"] * 4), device="cpu")
+    _, consts, carry = _umap_pre_loop(model, _umap_rows(2000, seed=3))
+    assert consts["edge_schedule"] == "groups" and len(consts["shards"]) == 4
+    Z = torch.from_numpy(_Z(2000, scale=3.0, seed=4))
+    for it in (0, 7):
+        neg = torch.from_numpy(np.random.default_rng(it).integers(0, 2000, 512))
+        grad, out = model._gradients(Z, consts, dict(carry), it, 1.0, neg)
+        want = umap_step(Z, consts["NN"][it % 4], out["active_edges"], neg, model._a, model._b,
+                         model.negative_sample_rate)
+        assert want.dtype == torch.float64
+        assert widest_row_gap(grad, want) < 1e-5
 
 
 @pytest.mark.parametrize("model_cls", [TSNE, SNE])

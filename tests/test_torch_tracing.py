@@ -17,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread
 from torchdr_tpu_torch import IVF, PCA, TSNE, UMAP
 from torchdr_tpu_torch.ops.ivf import ivf_knn
+from torchdr_tpu_torch.parallel import make_mesh
 from torchdr_tpu_torch.utils import device_trace, get_logger, log_phase
 from torchdr_tpu_torch.utils import profiling
 
@@ -26,6 +28,9 @@ PHASES = {"knn", "affinity", "init", "optimize"}
 API = {"fit", "api.check", "api.dedup", "api.h2d", "api.d2h"}
 LOOP = {"optimize.consts", "optimize.loop", "optimize.wait"}
 IVF_KEYS = {"knn.build", "knn.search"}
+#: what a mesh adds: the IVF's build, copies and sharded search; the exchange
+MESH_IVF_KEYS = {"knn.build", "knn.replicate", "knn.shards"}
+MESH_KEYS = {"affinity.exchange"}
 #: the accumulator: the sum of many blocks, not one range
 TOTALS = {"optimize.wait"}
 KINDS = ("umap", "umap_ivf", "tsne")
@@ -72,6 +77,45 @@ def test_children_sum_to_no_more_than_their_parent(fitted, kind):
     assert t["optimize.wait"] <= t["optimize.loop"]
     if kind == "umap_ivf":
         assert t["knn.build"] + t["knn.search"] <= t["knn"]
+
+
+def test_a_span_on_a_mesh_synchronises_each_distinct_card(monkeypatch):
+    seen = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: seen.append(device))
+    mesh = make_mesh(devices=["cuda:0", "cuda:1", "cuda:0", "cpu", "cuda:3"])
+    cards = [torch.device("cuda", i) for i in (0, 1, 3)]
+    record = {}
+    with profiling.fit_span(record):
+        with profiling.span("knn", mesh=mesh):
+            with profiling.span("shards", mesh=make_mesh(devices=["cpu"] * 4)):
+                pass
+            assert seen == []
+        assert seen == cards
+        with profiling.span("consts", torch.device("cuda", 2), mesh=mesh):
+            pass
+        assert seen == cards + [torch.device("cuda", 2)] + cards
+        with profiling.span("loop", torch.device("cuda", 1)):
+            pass
+    assert seen[-1] == torch.device("cuda", 1) and len(seen) == 8
+    assert set(record) == {"fit", "knn", "knn.shards", "consts", "loop"}
+
+
+@pytest.mark.parametrize("knn", ["exact", "ivf"])
+def test_a_mesh_fit_records_the_mesh_s_spans_and_every_other(knn):
+    """A UMAP fit over a 4-way CPU mesh holds every key a one-device fit
+    holds but "knn.search" (the mesh's search is "knn.shards"), and those
+    the mesh adds."""
+    kind = "umap_ivf" if knn == "ivf" else "umap"
+    model = _model(kind)
+    model.mesh = make_mesh(devices=["cpu"] * 4)
+    with one_torch_thread():
+        model.fit_transform(_rows())
+    added = MESH_KEYS | (MESH_IVF_KEYS if knn == "ivf" else set())
+    assert set(model.timings_) == PHASES | API | LOOP | added
+    t = model.timings_
+    assert t["affinity.exchange"] <= t["affinity"] - t["knn"]
+    if knn == "ivf":
+        assert t["knn.build"] + t["knn.replicate"] + t["knn.shards"] <= t["knn"]
 
 
 def test_the_active_record_is_restored_after_a_fit_that_raises():

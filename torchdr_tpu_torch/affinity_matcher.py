@@ -38,8 +38,10 @@ the affinity phase and injected into the input affinity, whose kNN build
 and symmetrization then run row-sharded over it. The loop's state (Z or
 the encoder's weights, the optimizer's buffers, the affinity) lives on the
 mesh's first device, where the JAX package row-shards it by GSPMD
-placement hints; the explicitly sharded operations (t-SNE's and SNE's
-O(n²) repulsion) spread their work over the mesh.
+placement hints; the explicitly sharded operations spread their work over
+the mesh: t-SNE's and SNE's O(n²) repulsion, and UMAP's whole step (each
+shard's rows' attraction and K1 repulsion on the shard's device, Z copied
+out and the gradient gathered back each step; ``models/neighbor/umap.py``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,10 @@ class AffinityMatcher(DRModule):
     ("fit", "api.check", "api.h2d", "api.dedup", "api.d2h"), and the phases
     "affinity" (the whole input affinity, kNN included), "knn" (the kNN
     build inside it; with ``knn_mode="ivf"`` on one device "knn.build",
-    the index, and "knn.search"), "init" and "optimize", which holds
+    the index, and "knn.search"; on a mesh "knn.build", "knn.replicate",
+    the index and queries copied to the other devices, and "knn.shards",
+    the searches through to the gathered graph), "affinity.exchange" (on
+    a mesh, a sparse affinity's edge exchange), "init" and "optimize", which holds
     "optimize.consts" (the loop's constants and first carry) and
     "optimize.loop" (the loop). "optimize.wait" is the part of the loop
     spent waiting on the device (the grad-norm reads of the check steps
@@ -232,7 +237,7 @@ class AffinityMatcher(DRModule):
         with log_phase(self.logger, "init", self.timings_, X.device):
             Z0 = self._init_embedding(X)
         with log_phase(self.logger, "optimize", self.timings_, X.device):
-            with span("consts", X.device):
+            with span("consts", X.device, mesh=self._fit_mesh_):
                 consts = self._build_consts(X)
                 carry0 = self._init_carry(consts)
             Z, n_iter, grad_norm = self._optimize(Z0, consts, carry0)

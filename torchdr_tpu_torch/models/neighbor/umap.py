@@ -14,6 +14,26 @@ the columns round-robin into G groups and visits group t % G at step t;
 step t the row prefix that holds every power-of-two band b with
 t % 2^b == 0. The prefix widths are host integers, so a step slices a
 rectangle of the edge arrays; the repulsion is K1 in every schedule.
+
+On a device mesh of more than one shard the step is row-sharded (where
+the repulsion is K1: shared negatives, width up to 8). Each shard's rows
+of the edge arrays are placed on its device once a fit; each step copies
+Z and the step's one draw of negatives to every device, computes on each
+shard its rows' attraction and fire counts (gathering from its copy of Z)
+and K1 over its rows against the shared sample, and gathers the gradient
+and the fire counts on the mesh's first device, which keeps Z and the
+optimizer's state. No row's sum is split across devices, so the result is
+the one-device step's.
+
+On CUDA devices one thread issues every shard, so a shard's ~30 operators
+would cost the host four times the one-card step's issue (threads, one a
+card, were slower still: they contend for the GIL at every operator);
+each shard's step is instead replayed from a CUDA graph
+(:class:`_ShardGraphs`), captured from the same operators with the step
+counter and the edge group as inputs on the device, so a replay gives the
+eager step's bits: one graph a shard (and, under the bands schedule, a
+prefix width). A fit's first step runs eagerly, which loads every kernel
+on every device before any capture.
 """
 
 from __future__ import annotations
@@ -26,13 +46,15 @@ import torch
 
 from ...affinity.knn_normalized import UMAPAffinity
 from ...ops.cuda.umap_kernel import MAX_D, fused_shared_repulsion
-from .base import NegativeSamplingNeighborEmbedding
+from ...parallel.mesh import chunk_bounds
+from .base import NeighborEmbedding, NegativeSamplingNeighborEmbedding
 
 
-def _div(x: float, t: torch.Tensor) -> torch.Tensor:
+def _div(x, t: torch.Tensor) -> torch.Tensor:
     """x / t rounded as one IEEE division (torch's ``float / Tensor`` is
-    ``t.reciprocal() * x``, which rounds twice)."""
-    return torch.div(torch.tensor(x, dtype=t.dtype), t)
+    ``t.reciprocal() * x``, which rounds twice); x a float or a 0-dim
+    tensor on t's device."""
+    return torch.div(x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=t.dtype), t)
 
 
 def find_ab_params(spread: float, min_dist: float):
@@ -57,6 +79,13 @@ class UMAP(NegativeSamplingNeighborEmbedding):
     Loss: -Σ_ij P_ij log Q_ij + Σ_{i, j ∈ Neg(i)} log(1 - Q_ij) with
     Q_ij = (1 + a d²ᵇ)⁻¹, optimized with closed-form gradients and the
     per-edge epochs_per_sample schedule.
+
+    Over a device mesh (``mesh=``, or ``distributed=True``: every visible
+    card) the kNN, the fuzzy union's edge exchange and each step are
+    row-sharded: every device computes its rows' attraction and K1
+    repulsion against the step's shared negatives, while Z, the optimizer's
+    state and the affinity stay on the mesh's first device, which gathers
+    the gradient. The result is the one-device step's.
     """
 
     _use_closed_form_gradients = True
@@ -262,7 +291,9 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         )
         return consts
 
-    def _build_consts(self, X):
+    def _edge_consts(self, X):
+        """The loop's constants on one device: the edge arrays of the
+        fit's schedule."""
         consts = super()._build_consts(X)
         P = self.affinity_in_
         NN = self.NN_indices_.long()
@@ -300,6 +331,38 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         )
         return consts
 
+    def _build_consts(self, X):
+        consts = self._edge_consts(X)
+        mesh = getattr(self, "_fit_mesh_", None)
+        if mesh is not None and len(mesh) > 1 and self.shared_negatives \
+                and self.n_components <= MAX_D:
+            consts["shards"] = self._shard_consts(consts, mesh)
+            if all(d.type == "cuda" for d in mesh.devices):
+                consts["graphs"] = _ShardGraphs(consts["shards"])
+        return consts
+
+    def _shard_consts(self, consts, mesh):
+        """Each shard's rows (``chunk_bounds``) of the edge arrays, on its
+        device, with what a step of them reads besides."""
+        n, world = consts["n"], len(mesh)
+        grouped = consts["edge_groups_G"] > 1  # (G, n, W) arrays
+        shards = []
+        for r, dev in enumerate(mesh.devices):
+            row0, rows = chunk_bounds(n, world, r)
+            part = slice(row0, row0 + rows)
+
+            def cut(a):
+                return (a[:, part] if grouped else a[part]).contiguous().to(dev)
+
+            shard = {k: consts[k] for k in ("n", "edge_schedule", "edge_groups_G")}
+            shard.update(device=dev, row0=row0, rows=rows, NN=cut(consts["NN"]),
+                         epochs_per_sample=cut(consts["epochs_per_sample"]))
+            if consts["edge_schedule"] == "bands":
+                shard["band_widths"] = consts["band_widths"]
+                shard["band_period"] = consts["band_period"].to(dev)
+            shards.append(shard)
+        return shards
+
     def _init_carry(self, consts):
         carry = super()._init_carry(consts)
         # attraction computes per-edge fire counts; repulsion consumes them
@@ -311,43 +374,95 @@ class UMAP(NegativeSamplingNeighborEmbedding):
 
     # --- closed-form gradients ---
 
-    def _attr_core(self, Z, NN, eps, period, it: int):
-        """Closed-form attraction over one (n, W) edge slice.
+    def _gradients(self, Z, consts, carry, it, ee_coeff, neg_ids=None):
+        if "shards" not in consts:
+            return super()._gradients(Z, consts, carry, it, ee_coeff, neg_ids)
+        return self._sharded_gradients(Z, consts, carry, it, ee_coeff, neg_ids)
+
+    def _sharded_gradients(self, Z, consts, carry, it, ee_coeff, neg_ids=None):
+        """The step over the mesh's shards (module docstring): the full
+        (n, d) gradient and (n, W) fire counts on Z's device."""
+        n, shards = consts["n"], consts["shards"]
+        if neg_ids is None:
+            neg_ids = self._draw_shared_negatives(n, self._shared_negative_count(int(n)), Z.device)
+        graphs = consts.get("graphs")
+        if graphs is not None and graphs.warm:
+            parts = graphs.step(self, Z, neg_ids, it, ee_coeff)
+        else:  # a CPU mesh, or a CUDA mesh's first step
+            copies = {dev: (Z.to(dev), neg_ids.to(dev))
+                      for dev in dict.fromkeys(s["device"] for s in shards)}
+            parts = [self._shard_step(*copies[s["device"]], s, it, ee_coeff) for s in shards]
+            if graphs is not None:
+                graphs.warm = True
+        grad = torch.empty_like(Z)
+        fired = torch.empty((n, parts[0][1].shape[1]), dtype=torch.float32, device=Z.device)
+        for shard, (g, c) in zip(shards, parts):
+            rows = slice(shard["row0"], shard["row0"] + shard["rows"])
+            grad[rows].copy_(g)
+            fired[rows].copy_(c)
+        return grad, dict(carry, active_edges=fired)
+
+    def _shard_step(self, Z, neg_ids, shard, it, ee_coeff):
+        """One shard's (gradient, fire counts) at step ``it``: Z and the
+        shared negatives on the shard's device, ``shard`` its rows' edge
+        arrays (and, in a captured graph, the step counter ``now``)."""
+        g, carry = NeighborEmbedding._gradients(self, Z, shard, {}, it, ee_coeff, neg_ids)
+        return g, carry["active_edges"]
+
+    def _step_variant(self, consts, it: int):
+        """What a step's shapes depend on: the band prefix's width, under the
+        bands schedule (the edge group is an input of the step)."""
+        return self._band_width(consts, it) if consts["edge_schedule"] == "bands" else 0
+
+    def _attr_core(self, Z, NN, eps, period, it: int, row0: int = 0, now=None):
+        """Closed-form attraction over one (rows, W) edge slice: rows
+        ``[row0, row0 + rows)`` of Z (all of them on one device), each
+        edge's end gathered from all of Z.
 
         Returns (grad, per-edge fire counts c). The catch-up burst at step
         ``it`` is the number of fire events k·eps in (now−period, now]:
-        floor(now/eps) − floor(max(now−period, 0)/eps). ``period`` is the
-        slice's visit period: a float, or a (1, W) tensor of per-column
-        periods (the bands schedule). Dead/pad edges carry eps=inf, so
-        now/inf = 0 gives c = 0 with no masking.
+        floor(now/eps) − floor(max(now−period, 0)/eps), now = it + 1 (or
+        ``now``, a 0-dim float32 tensor holding it: a captured graph's
+        input). ``period`` is the slice's visit period: a float, or a (1, W)
+        tensor of per-column periods (the bands schedule). Dead/pad edges
+        carry eps=inf, so now/inf = 0 gives c = 0 with no masking.
         """
-        diff = Z[:, None, :] - Z[NN]
+        Zi = Z if NN.shape[0] == Z.shape[0] else Z[row0 : row0 + NN.shape[0]]
+        diff = Zi[:, None, :] - Z[NN]
         D = torch.sum(diff * diff, dim=-1)
         t = D**self._b
         coef = 2.0 * self._a * self._b * t / (torch.clamp(D, min=1e-20) * (1.0 + self._a * t))
         coef = torch.where(D > 0, coef, torch.zeros_like(coef))
 
-        now = float(it + 1)
+        now = float(it + 1) if now is None else now
         if isinstance(period, torch.Tensor):
             prev = torch.clamp(now - period, min=0.0)
             c = torch.floor(_div(now, eps)) - torch.floor(prev / eps)
         else:
-            c = torch.floor(_div(now, eps)) - torch.floor(_div(max(now - period, 0.0), eps))
+            # every value an integer, exact in float32 on either side
+            prev = max(now - period, 0.0) if isinstance(now, float) else torch.clamp(
+                now - period, min=0.0)
+            c = torch.floor(_div(now, eps)) - torch.floor(_div(prev, eps))
         coef = coef * c
         grad = torch.clamp(torch.sum(diff * coef[:, :, None], dim=1), -4.0, 4.0)
         return grad, c
+
+    @staticmethod
+    def _band_width(consts, it: int) -> int:
+        """The bands schedule's prefix width at step ``it``."""
+        widths = consts["band_widths"]
+        tz = (it & -it).bit_length() - 1 if it > 0 else len(widths) - 1
+        return widths[min(tz, len(widths) - 1)]
 
     def _attractive_gradients_bands(self, Z, consts, carry, it):
         """Step ``it`` visits the row prefix of width
         band_widths[trailing_zeros(it)] (step 0 the last band's): every band
         b with it % 2^b == 0. A column is visited on a fixed period, its
         first band's, so _attr_core's burst count applies."""
-        widths = consts["band_widths"]
-        tz = (it & -it).bit_length() - 1 if it > 0 else len(widths) - 1
-        W = widths[min(tz, len(widths) - 1)]
+        W = self._band_width(consts, it)
         grad, c = self._attr_core(
             Z, consts["NN"][:, :W], consts["epochs_per_sample"][:, :W],
-            consts["band_period"][:, :W], it,
+            consts["band_period"][:, :W], it, consts.get("row0", 0), consts.get("now"),
         )
         return grad, dict(carry, active_edges=torch.sum(c, dim=1, keepdim=True))
 
@@ -355,12 +470,16 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         if consts["edge_schedule"] == "bands":
             return self._attractive_gradients_bands(Z, consts, carry, it)
         G = consts["edge_groups_G"]
-        if G > 1:
+        if G > 1 and "group" in consts:  # the group an input on the device
+            NN, eps = (torch.index_select(consts[k], 0, consts["group"])[0]
+                       for k in ("NN", "epochs_per_sample"))
+        elif G > 1:
             g = it % G
             NN, eps = consts["NN"][g], consts["epochs_per_sample"][g]
         else:
             NN, eps = consts["NN"], consts["epochs_per_sample"]
-        grad, c = self._attr_core(Z, NN, eps, float(G), it)
+        grad, c = self._attr_core(Z, NN, eps, float(G), it, consts.get("row0", 0),
+                                  consts.get("now"))
         return grad, dict(carry, active_edges=c)
 
     def _repulsive_gradients(self, Z, consts, carry, it, neg_ids=None):
@@ -376,7 +495,10 @@ class UMAP(NegativeSamplingNeighborEmbedding):
                 # K1: every point repels against one shared sample of S
                 # points, each weighted by neg_counts_i / S
                 w = neg_counts.float() / S
-                return fused_shared_repulsion(Z, neg_ids, w, self._a, self._b, self._eps), carry
+                # a shard's rows of Z, on a mesh
+                rows = {"row0": consts["row0"], "rows": w.shape[0]} if "row0" in consts else {}
+                return fused_shared_repulsion(Z, neg_ids, w, self._a, self._b, self._eps,
+                                              **rows), carry
             # Embedding wider than K1 takes: the reference's gram form,
             # D = ‖z_i‖² + ‖z_s‖² − 2 Z Zₛᵀ, grad = (Σ_s c) z_i − c Zₛ.
             D, valid, Zneg = self._shared_negative_sqdists(Z, consts, neg_ids)
@@ -397,3 +519,76 @@ class UMAP(NegativeSamplingNeighborEmbedding):
         coef = torch.where(col[None, :] >= neg_counts[:, None], torch.zeros_like(coef), coef)
         grad = torch.clamp(torch.sum(diff * coef[:, :, None], dim=1), -4.0, 4.0)
         return grad, carry
+
+
+class _ShardGraphs:
+    """The row-sharded step's shards replayed from CUDA graphs, from a fit's
+    second step on (``warm``: the first runs eagerly).
+
+    Each device holds the graphs' static inputs, allocated at the first
+    replayed step: a copy of Z, the step's shared negatives, the step
+    counter ``now`` (0-dim float32) and the edge group (a 1-element int64
+    index). Each step copies Z and the draw into them and sets the counter
+    and the group (a few operators a device), then replays each shard's
+    graph of the step's variant (``UMAP._step_variant``), captured at that
+    variant's first step from ``UMAP._shard_step`` itself; the outputs,
+    static too, are copied to the first device by the caller before the
+    next replay. A device's graphs share one memory pool, since they replay
+    one after another on its stream. K1's launches inside a replay are
+    counted as the eager step counts them.
+    """
+
+    def __init__(self, shards):
+        self.shards = shards
+        self.devices = list(dict.fromkeys(s["device"] for s in shards))
+        self.inputs = {}  # device -> (Z, neg_ids, now, group)
+        self.graphs = {}  # (shard, variant, ee_coeff) -> (graph, outputs, K1 launches)
+        self.pools = {}  # device -> its graphs' memory pool
+        self.warm = False
+
+    def step(self, model, Z, neg_ids, it, ee_coeff):
+        """Each shard's (gradient, fire counts) at step ``it``."""
+        if not self.inputs:  # Z's and the draw's shapes are fixed for the fit
+            self.inputs = {dev: (torch.empty_like(Z, device=dev),
+                                 torch.empty_like(neg_ids, device=dev),
+                                 torch.zeros((), dtype=torch.float32, device=dev),
+                                 torch.zeros(1, dtype=torch.int64, device=dev))
+                           for dev in self.devices}
+        G = self.shards[0]["edge_groups_G"]
+        for Zs, neg, now, group in self.inputs.values():
+            Zs.copy_(Z)
+            neg.copy_(neg_ids)
+            now.fill_(it + 1)
+            if G > 1:
+                group.fill_(it % G)
+        out = []
+        for r, shard in enumerate(self.shards):
+            key = (r, model._step_variant(shard, it), float(ee_coeff))
+            if key not in self.graphs:
+                self.graphs[key] = self._capture(model, shard, it, ee_coeff)
+            graph, outputs, k1 = self.graphs[key]
+            with torch.cuda.device(shard["device"]):
+                graph.replay()
+            fused_shared_repulsion.launches += k1
+            out.append(outputs)
+        return out
+
+    def _capture(self, model, shard, it, ee_coeff):
+        device = shard["device"]
+        Zs, neg, now, group = self.inputs[device]
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        launches = fused_shared_repulsion.launches
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            graph.capture_begin(pool=self.pools.get(device))
+            try:
+                outputs = model._shard_step(Zs, neg, dict(shard, now=now, group=group), it,
+                                            ee_coeff)
+            finally:
+                graph.capture_end()
+        # a capture launches nothing: its K1 calls count at each replay
+        k1, fused_shared_repulsion.launches = fused_shared_repulsion.launches - launches, launches
+        self.pools.setdefault(device, graph.pool())
+        torch.cuda.current_stream(device).wait_stream(stream)
+        return graph, outputs, k1

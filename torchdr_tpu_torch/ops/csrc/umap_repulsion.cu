@@ -200,8 +200,8 @@ __device__ __forceinline__ void pair_group(const float* recs, const int* ids, in
 template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 repulsion_kernel(const float* __restrict__ Z, const long long* __restrict__ neg_ids,
-                 const float* __restrict__ w, float* __restrict__ out, int n, int S, int s_tile,
-                 int lanes, float a, float b, float eps) {
+                 const float* __restrict__ w, float* __restrict__ out, int row0, int rows, int S,
+                 int s_tile, int lanes, float a, float b, float eps) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   constexpr int kUnroll = Shape<D>::kUnroll;
@@ -214,15 +214,17 @@ repulsion_kernel(const float* __restrict__ Z, const long long* __restrict__ neg_
   const int group = threadIdx.x / lanes;       // its rows' place in the block's tile
   const int groups = kThreads / lanes;
 
-  int row[R];  // the ragged last tile: rows >= n are computed and not written
+  // rows [row0, end) of Z; the ragged last tile: rows >= end are computed and not written
+  const int end = row0 + rows;
+  int row[R];
   float zi[R][D];
   double sum[R][D];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    row[r] = blockIdx.x * (R * groups) + r * groups + group;
+    row[r] = row0 + blockIdx.x * (R * groups) + r * groups + group;
 #pragma unroll
     for (int c = 0; c < D; ++c) {
-      zi[r][c] = row[r] < n ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+      zi[r][c] = row[r] < end ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
       sum[r][c] = 0.0;
     }
   }
@@ -268,47 +270,54 @@ repulsion_kernel(const float* __restrict__ Z, const long long* __restrict__ neg_
       for (int off = lanes >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
       sum[r][c] = v;
     }
-    if (lane == 0 && row[r] < n) {
-      const double scale = -2.0 * static_cast<double>(b) * static_cast<double>(w[row[r]]);
+    if (lane == 0 && row[r] < end) {
+      const int i = row[r] - row0;  // the row's place in w and out
+      const double scale = -2.0 * static_cast<double>(b) * static_cast<double>(w[i]);
 #pragma unroll
       for (int c = 0; c < D; ++c) {
         const float g = static_cast<float>(sum[r][c] * scale);
-        out[static_cast<size_t>(row[r]) * D + c] = fminf(fmaxf(g, -4.0f), 4.0f);
+        out[static_cast<size_t>(i) * D + c] = fminf(fmaxf(g, -4.0f), 4.0f);
       }
     }
   }
 }
 
 template <int D>
-int launch(const float* Z, const long long* neg_ids, const float* w, float* out, int n, int S,
-           int s_tile, int lanes, float a, float b, float eps, cudaStream_t stream) {
+int launch(const float* Z, const long long* neg_ids, const float* w, float* out, int row0,
+           int rows, int S, int s_tile, int lanes, float a, float b, float eps,
+           cudaStream_t stream) {
   const bool mask = !(eps > 0.0f);
   const int tile_rows = Shape<D>::kRows * kThreads / lanes;
-  const int blocks = (n + tile_rows - 1) / tile_rows;
+  const int blocks = (rows + tile_rows - 1) / tile_rows;
   const size_t bytes =
       static_cast<size_t>(s_tile) * (Shape<D>::kRec * sizeof(float) + (mask ? sizeof(int) : 0));
   if (bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   if (mask)
-    repulsion_kernel<D, true><<<blocks, kThreads, bytes, stream>>>(Z, neg_ids, w, out, n, S,
-                                                                   s_tile, lanes, a, b, eps);
+    repulsion_kernel<D, true><<<blocks, kThreads, bytes, stream>>>(
+        Z, neg_ids, w, out, row0, rows, S, s_tile, lanes, a, b, eps);
   else
-    repulsion_kernel<D, false><<<blocks, kThreads, bytes, stream>>>(Z, neg_ids, w, out, n, S,
-                                                                    s_tile, lanes, a, b, eps);
+    repulsion_kernel<D, false><<<blocks, kThreads, bytes, stream>>>(
+        Z, neg_ids, w, out, row0, rows, S, s_tile, lanes, a, b, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, loaded with ctypes. Z (n, d), w (n,) and out (n, d) are
-// contiguous float32 on the device; neg_ids (S,) int64 with every id in
-// [0, n). `lanes` (a power of two up to 32) share a row's negatives, so a
-// block takes kRows * kThreads / lanes rows, and the sample is staged s_tile
+// C interface, loaded with ctypes. Z (n, d) is contiguous float32 on the
+// device, neg_ids (S,) int64 with every id in [0, n). The kernel computes rows
+// [row0, row0 + rows) of Z, each against the whole sample gathered from all
+// of Z: w (rows,) and out (rows, d), contiguous float32, hold those rows (a
+// shard's rows of a mesh; (0, n) is the whole embedding). A row's sum does
+// not depend on the range it is computed in: the same `lanes` give the same
+// bits. `lanes` (a power of two up to 32) share a row's negatives, so a block
+// takes kRows * kThreads / lanes rows, and the sample is staged s_tile
 // negatives at a time (at most kMaxStaged bytes, with the ids that eps <= 0
 // adds). Returns the first CUDA error (0 on success).
 extern "C" int umap_shared_repulsion(const void* Z, const void* neg_ids, const void* w, void* out,
-                                     int n, int d, int S, int s_tile, int lanes, float a, float b,
-                                     float eps, void* stream) {
-  if (n <= 0) return 0;
+                                     int row0, int rows, int d, int S, int s_tile, int lanes,
+                                     float a, float b, float eps, void* stream) {
+  if (rows <= 0) return 0;
+  if (row0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || s_tile < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* z = static_cast<const float*>(Z);
@@ -317,14 +326,14 @@ extern "C" int umap_shared_repulsion(const void* Z, const void* neg_ids, const v
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch<1>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 2: return launch<2>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 3: return launch<3>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 4: return launch<4>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 5: return launch<5>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 6: return launch<6>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 7: return launch<7>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
-    case 8: return launch<8>(z, ids, wp, o, n, S, s_tile, lanes, a, b, eps, st);
+    case 1: return launch<1>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 2: return launch<2>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 3: return launch<3>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 4: return launch<4>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 5: return launch<5>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 6: return launch<6>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 7: return launch<7>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
+    case 8: return launch<8>(z, ids, wp, o, row0, rows, S, s_tile, lanes, a, b, eps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

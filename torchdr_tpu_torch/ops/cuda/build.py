@@ -44,7 +44,8 @@ _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GATHER = [_V, _V, _V, _I, _I, _I, _I, _V]  # Zb, idx, out, nb, r, d, c, stream
 SIGNATURES = {
     "umap_repulsion": {
-        "umap_shared_repulsion": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _F, _F, _F, _V],
+        # Z, neg_ids, w, out, row0, rows, d, S, s_tile, lanes, a, b, eps, stream
+        "umap_shared_repulsion": [_V, _V, _V, _V, *[_I] * 6, _F, _F, _F, _V],
     },
     "rowlse_fwd": {
         "rowlse_fwd": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V],

@@ -46,16 +46,18 @@ _UNROLL = 8  # Shape<D>::kUnroll at d <= 2, half of it above: negatives a lane t
 _MAX_LANES = 32  # a row's negatives are split within one warp
 
 
-def _check(Z, neg_ids, weight):
+def _check(Z, neg_ids, weight, row0, rows):
     if Z.ndim != 2 or Z.dtype != torch.float32:
         raise ValueError(f"Z must be a 2D float32 tensor, got {Z.dtype} {tuple(Z.shape)}.")
     n, d = Z.shape
     if not 1 <= d <= MAX_D:
         raise ValueError(f"fused_shared_repulsion takes 1 <= d <= {MAX_D}, got d={d}.")
+    if not 0 <= row0 <= row0 + rows <= n:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) do not lie in Z's {n} rows.")
     if neg_ids.ndim != 1 or neg_ids.dtype not in (torch.int32, torch.int64):
         raise ValueError("neg_ids must be a 1D integer tensor.")
-    if weight.shape != (n,) or weight.dtype != torch.float32:
-        raise ValueError(f"weight must be float32 of shape ({n},).")
+    if weight.shape != (rows,) or weight.dtype != torch.float32:
+        raise ValueError(f"weight must be float32 of shape ({rows},).")
     if not (neg_ids.device == weight.device == Z.device):
         raise ValueError("Z, neg_ids and weight must lie on one device.")
     if not (Z.is_contiguous() and weight.is_contiguous()):
@@ -101,23 +103,27 @@ def repulsion_grid(n: int, S: int, d: int, sm_count: int, masked: bool = False):
 
 
 def shared_repulsion_plain(Z, neg_ids, weight, a: float, b: float, eps: float = 1e-3,
-                           chunk_pairs: int = 1 << 22, mask_self: bool = True):
+                           chunk_pairs: int = 1 << 22, mask_self: bool = True,
+                           row0: int = 0, rows: int | None = None):
     """The kernel's function in plain PyTorch, over (rows, S) chunks: every
     operation rounded in Z's type, the sums over s in float64. On float64
     tensors it is the yardstick both versions are held to.
 
     ``mask_self=False`` leaves out the test s == i: for eps > 0 the term
     coef·(z_i − z_i) is 0 without it, which the kernel relies on.
+    ``row0``, ``rows``: as :func:`fused_shared_repulsion`.
     """
     n, d = Z.shape
+    rows = n - row0 if rows is None else rows
     neg_ids = neg_ids.long()
     S = neg_ids.shape[0]
     Zneg = Z[neg_ids]
     two_b = torch.tensor(-2.0 * b, dtype=Z.dtype)  # a tensor: one IEEE division
-    out = torch.empty_like(Z)
-    rows = max(1, chunk_pairs // max(1, S))
-    for r0 in range(0, n, rows):
-        Zb = Z[r0 : r0 + rows]
+    out = torch.empty((rows, d), dtype=Z.dtype, device=Z.device)
+    step = max(1, chunk_pairs // max(1, S))
+    for i0 in range(0, rows, step):
+        r0 = row0 + i0
+        Zb = Z[r0 : row0 + min(rows, i0 + step)]
         diff = Zb[:, None, :] - Zneg[None, :, :]
         D = diff[..., 0] * diff[..., 0]
         for c in range(1, d):
@@ -128,11 +134,12 @@ def shared_repulsion_plain(Z, neg_ids, weight, a: float, b: float, eps: float = 
             ids = torch.arange(r0, r0 + Zb.shape[0], device=Z.device)
             coef = torch.where(neg_ids[None, :] == ids[:, None], torch.zeros_like(coef), coef)
         g = (coef[:, :, None] * diff).double().sum(dim=1).to(Z.dtype)
-        out[r0 : r0 + rows] = torch.clamp(g * weight[r0 : r0 + rows, None], -4.0, 4.0)
+        out[i0 : i0 + step] = torch.clamp(g * weight[i0 : i0 + step, None], -4.0, 4.0)
     return out
 
 
-def fused_shared_repulsion(Z, neg_ids, weight, a: float, b: float, eps: float = 1e-3):
+def fused_shared_repulsion(Z, neg_ids, weight, a: float, b: float, eps: float = 1e-3,
+                           row0: int = 0, rows: int | None = None):
     """Gradient of the shared-negative UMAP repulsion.
 
     Parameters
@@ -142,30 +149,37 @@ def fused_shared_repulsion(Z, neg_ids, weight, a: float, b: float, eps: float = 
         [0, n); int64 and contiguous costs no conversion. Any S: the JAX
         package takes its TPU kernel only for S % 128 == 0 (lane alignment),
         which has no meaning on the card.
-    weight : (n,) float32 per-row weight (neg_counts · rate / S).
+    weight : (rows,) float32 per-row weight (neg_counts · rate / S) of the
+        rows computed.
     a, b, eps : UMAP output-kernel constants.
+    row0, rows : the rows computed, ``[row0, row0 + rows)`` of Z (default
+        all of them), each against the sample gathered from all of Z: a
+        shard's rows on a mesh. A row's result does not depend on the range
+        it is computed in: the grid takes its lanes from Z's n, so four
+        ranges side by side give one launch's bits.
 
-    Returns the (n, d) float32 gradient, clipped to ±4. A CUDA tensor goes
+    Returns the (rows, d) float32 gradient, clipped to ±4. A CUDA tensor goes
     through the kernel (or raises); a CPU tensor through the plain version.
     """
-    _check(Z, neg_ids, weight)
+    n, d = Z.shape
+    rows = n - row0 if rows is None else int(rows)
+    _check(Z, neg_ids, weight, row0, rows)
     if Z.device.type == "cpu":
-        return shared_repulsion_plain(Z, neg_ids, weight, a, b, eps)
+        return shared_repulsion_plain(Z, neg_ids, weight, a, b, eps, row0=row0, rows=rows)
     if Z.device.type != "cuda":
         raise ValueError(f"fused_shared_repulsion: unsupported device {Z.device}.")
     fn = load_function("umap_repulsion")
-    n, d = Z.shape
     if neg_ids.dtype != torch.int64 or not neg_ids.is_contiguous():
         neg_ids = neg_ids.long().contiguous()
     S = neg_ids.shape[0]
-    out = torch.empty_like(Z)
-    if n == 0:
+    out = torch.empty((rows, d), dtype=Z.dtype, device=Z.device)
+    if rows == 0:
         return out
     # eps <= 0: coef is infinite at D = 0, so the kernel tests the ids
     lanes, _, s_tile = repulsion_grid(n, S, d, sm_count(Z.device.index), masked=not eps > 0)
     rc = launch(
         fn, Z, Z.data_ptr(), neg_ids.data_ptr(), weight.data_ptr(), out.data_ptr(),
-        n, d, S, s_tile, lanes, float(a), float(b), float(eps),
+        row0, rows, d, S, s_tile, lanes, float(a), float(b), float(eps),
     )
     if rc != 0:
         raise RuntimeError(f"umap_shared_repulsion launch failed: cudaError {rc}.")

@@ -10,6 +10,15 @@ block chooses the same cells as in the single-device search and the
 results are those of ``ivf_knn`` over the same blocks. Under the split
 tier the lo plane is cut with the query rows; the norms, scales, cell
 table and supers are replicated with the rest of the index.
+
+Every copy to another device (the index and the shards' query slices) is
+made before any search is issued: a copy runs on its source device's
+stream, so one made later would wait behind the first device's search.
+The results are gathered on the index's device. Inside a fit the three
+stages are spans of its ``timings_``, each synchronised on every device of
+the mesh: "knn.build" (the index, as ``ivf_knn`` records it),
+"knn.replicate" (the copies) and "knn.shards" (the searches through to the
+gathered result).
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from ..ops.ivf import (
     _resolve_search_knobs,
     ivf_build,
 )
+from ..utils.profiling import span
 from ..utils.wrappers import full_float32
 from .mesh import pad_to_multiple
 
@@ -70,8 +80,9 @@ def ivf_knn_sharded(
     if index is None:
         if X is None:
             raise ValueError("[TorchDR-Torch] ERROR : pass X or a prebuilt index.")
-        index = ivf_build(X, n_clusters=n_clusters, generator=generator, storage=storage,
-                          device=device)
+        with span("build", mesh=mesh):
+            index = ivf_build(X, n_clusters=n_clusters, generator=generator, storage=storage,
+                              device=device)
     n, chunk = index.n, index.chunk
     nprobe, budget, m_eff, merge, max_ch, scan_impl, n_supers, nominate = _resolve_search_knobs(
         index, k, nprobe, m, budget, merge, scan_impl, nprobe_supers, nomination, rerank=rerank,
@@ -91,22 +102,22 @@ def ivf_knn_sharded(
         Qs, Qs_lo, out_ids = _pad_queries(Qs, Qs_lo, out_ids, n_pad - total)
     q_rows = torch.where(out_ids >= 0, out_ids + (0 if exclude_self else n), out_ids)
     shard = n_pad // world
-    ds, is_, replicas = [], [], {}
-    for r, shard_dev in enumerate(mesh.devices):
-        if shard_dev not in replicas:
-            replicas[shard_dev] = _index_on(index, shard_dev)
-        idx = replicas[shard_dev]
-        lo = r * shard
-        lo_plane = None if Qs_lo is None else Qs_lo[lo : lo + shard].to(shard_dev)
-        d, i = _ivf_search_impl(Qs[lo : lo + shard].to(shard_dev),
-                                q_rows[lo : lo + shard].to(shard_dev), idx, pos0=lo,
-                                Qs_lo=lo_plane, **search)
-        ds.append(d.to(dev))
-        is_.append(i.to(dev))
-    # back to original row order (dead rows to the spill slot n)
-    scatter_ids = torch.where(out_ids >= 0, out_ids, n).long()
-    out_d = torch.zeros((n + 1, k), dtype=torch.float32, device=dev)
-    out_i = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
-    out_d[scatter_ids] = torch.cat(ds)
-    out_i[scatter_ids] = torch.cat(is_)
+    with span("replicate", mesh=mesh):
+        replicas, queries = {}, []
+        for r, shard_dev in enumerate(mesh.devices):
+            if shard_dev not in replicas:
+                replicas[shard_dev] = _index_on(index, shard_dev)
+            part = slice(r * shard, (r + 1) * shard)
+            queries.append((Qs[part].to(shard_dev), q_rows[part].to(shard_dev),
+                            None if Qs_lo is None else Qs_lo[part].to(shard_dev)))
+
+    with span("shards", mesh=mesh):
+        found = [_ivf_search_impl(Q, rows, replicas[d], pos0=r * shard, Qs_lo=lo_plane, **search)
+                 for r, (d, (Q, rows, lo_plane)) in enumerate(zip(mesh.devices, queries))]
+        # back to original row order (dead rows to the spill slot n)
+        scatter_ids = torch.where(out_ids >= 0, out_ids, n).long()
+        out_d = torch.zeros((n + 1, k), dtype=torch.float32, device=dev)
+        out_i = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
+        out_d[scatter_ids] = torch.cat([d.to(dev) for d, _ in found])
+        out_i[scatter_ids] = torch.cat([i.to(dev) for _, i in found])
     return out_d[:n], out_i[:n]

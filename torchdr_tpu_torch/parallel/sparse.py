@@ -14,6 +14,11 @@ JAX package keeps the first ``k_out`` received edges of a row in arrival
 order and then the lowest columns, so its mesh result differs from its own
 single-device one; the port keeps the strongest edges on a mesh too
 (ROADMAP, "Quirks of the reference").
+
+Inside a fit the whole exchange, buckets through to the merged rows on the
+input's device, is the span "exchange" of its ``timings_``
+("affinity.exchange" in an estimator's affinity phase), synchronised on
+every device of the mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Tuple
 import torch
 
 from ..ops.sparse import pack_rows, resolve_k_out
+from ..utils.profiling import span
 from .mesh import pad_to_multiple
 
 
@@ -63,6 +69,11 @@ def distributed_symmetrize_sparse(
     """
     if mode not in ("sum", "sum_minus_prod"):
         raise ValueError(f"Unsupported mode {mode!r}")
+    with span("exchange", mesh=mesh):
+        return _exchange(values, indices, mesh, mode, k_out)
+
+
+def _exchange(values, indices, mesh, mode, k_out):
     n, k = values.shape
     world = len(mesh)
     k_out, value_order = resolve_k_out(indices, k_out)

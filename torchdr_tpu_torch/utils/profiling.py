@@ -16,7 +16,9 @@ which also times the whole fit as ``"fit"``); code under the fit opens a
 child span by name (:func:`span`) and needs no parameter for it. A span
 records its wall seconds into the active record under a dotted name, its
 parent's name and its own (``"knn.build"``); a span given a CUDA device
-synchronises it at the end, so the time covers the work the span enqueued.
+synchronises it at the end, so the time covers the work the span enqueued,
+and a span given a device mesh (``parallel.Mesh``) synchronises each
+distinct CUDA device of the mesh.
 ``log_phase``'s phases are spans too, recorded under their own names in
 the record their caller passes, and they name their children. With no fit
 active, :func:`span` records nothing and costs one context-variable read.
@@ -46,18 +48,27 @@ _annotate = False
 _OFF = contextlib.nullcontext()
 
 
+def _cuda_devices(device, mesh) -> tuple:
+    """The distinct CUDA devices among ``device`` and the mesh's, in order."""
+    devices = ([] if device is None else [torch.device(device)]) + (
+        [] if mesh is None else list(mesh.devices))
+    return tuple(dict.fromkeys(d for d in devices if d.type == "cuda"))
+
+
 class _Span:
     """Times a block: its wall seconds into ``record[key]`` (added to what
     is there with ``add``), after synchronising ``device`` if it is a CUDA
-    device. ``children`` is what the active record is inside the block
-    (None leaves it). Reusable, one block at a time."""
+    device, and each distinct CUDA device of ``mesh``. ``children`` is what
+    the active record is inside the block (None leaves it). Reusable, one
+    block at a time."""
 
-    __slots__ = ("record", "key", "device", "children", "add", "seconds", "_t0", "_token",
+    __slots__ = ("record", "key", "devices", "children", "add", "seconds", "_t0", "_token",
                  "_range")
 
     def __init__(self, record, key: str, device: Optional[torch.device] = None,
-                 children=None, add: bool = False):
-        self.record, self.key, self.device = record, key, device
+                 children=None, add: bool = False, mesh=None):
+        self.record, self.key = record, key
+        self.devices = _cuda_devices(device, mesh)
         self.children, self.add = children, add
         self.seconds = 0.0
 
@@ -72,8 +83,8 @@ class _Span:
 
     def __exit__(self, *exc):
         try:
-            if self.device is not None and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for device in self.devices:
+                torch.cuda.synchronize(device)
         finally:
             if self._range is not None:
                 self._range.__exit__(*exc)
@@ -94,16 +105,17 @@ def fit_span(record: Dict[str, float], device: Optional[torch.device] = None) ->
     return _Span(record, "fit", device, children=(record, ""))
 
 
-def span(name: str, device: Optional[torch.device] = None):
+def span(name: str, device: Optional[torch.device] = None, mesh=None):
     """A child of the open span, recorded in the active fit's record as
     ``<parent>.<name>`` (``name`` alone under the root); does nothing
-    outside a fit."""
+    outside a fit. At its end it synchronises ``device`` and, on a mesh,
+    every distinct device of ``mesh``."""
     active = _ACTIVE.get()
     if active is None:
         return _OFF
     record, prefix = active
     key = prefix + name
-    return _Span(record, key, device, children=(record, key + "."))
+    return _Span(record, key, device, children=(record, key + "."), mesh=mesh)
 
 
 def phase_span(phase: str, record: Optional[Dict[str, float]],
