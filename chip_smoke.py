@@ -7,15 +7,18 @@ Phases, in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel, from the sources in the checkout (one nvcc per
    source, started together);
-3. kernels: each kernel of the fits (K1, K2, K3) against its plain PyTorch
-   version on the card (K1 also against a float64 evaluation), at the main
-   paths' shapes plus edge cases, with its time, the plain version's time
-   and its bound;
+3. kernels: each kernel of the fits (K1, K2, K3, A1) against its plain
+   PyTorch version on the card (K1 and A1 also against a float64
+   evaluation), at the main paths' shapes plus edge cases, with its time,
+   the plain version's time and its bound (A1, t-SNE's and SNE's
+   attraction, at the benchmark's 70,000 x 90, d = 2, also beside the
+   autograd path it replaced, and launched twice for equal bits);
 4. fits, each with every kernel launch counter set to 0 just before and
    read just after: ``UMAP(random_state=0).fit_transform(X)`` on 60,000 x
    784 float32 synthetic data (50 Gaussian clusters, seeded), then
    ``TSNE(random_state=0)`` and ``SNE(random_state=0, lr=n/12)`` on
-   10,000 x 784 from the same generator; phase times, peak memory, launches, NaN check and a
+   10,000 x 784 from the same generator; phase times, peak memory, launches
+   (A1 once a step on t-SNE and SNE, none on the others), NaN check and a
    10-NN label accuracy of the embedding;
 5. the estimators without a kernel of their own, as in phase 4 (every
    launch counter must read 0): ``LargeVis(random_state=0)``,
@@ -185,8 +188,9 @@ Phases, in order; any failure exits non-zero:
 
 With ``--k1`` it builds, checks and times K1 alone and stops after phase 3
 (with ``--sass``, K1's report): the quick way to compare two versions of that
-kernel in one call. With ``--gather`` it builds the gathers alone and runs
-phase 7 only (with ``--sass``, their report). With ``--ivf`` it builds K1 and
+kernel in one call. With ``--a1`` it does the same for A1. With ``--gather``
+it builds the gathers alone and runs phase 7 only (with ``--sass``, their
+report). With ``--ivf`` it builds K1 and
 runs phase 6 alone. With ``--ne`` it builds nothing and runs phase 5 alone;
 with ``--spectral``, phase 8 alone; with ``--mesh`` it builds K1, K2 and K3
 and runs phase 9 alone (with the three fits without a mesh beside it). With
@@ -398,6 +402,7 @@ TRACED_KERNELS = {
     "fused_shared_repulsion": ("repulsion_kernel",),
     "rowlse_fwd": ("rowlse_partial_kernel", "rowlse_merge_kernel"),
     "rowlse_bwd": ("rowlse_bwd_partial_kernel", "rowlse_bwd_merge_kernel"),
+    "tsne_attraction": ("tsne_attraction_kernel",),
 }
 # the script that the CLI runs: the north-star fit, its K1 launches and its
 # 10-NN accuracy as one JSON line (chip_smoke is importable: the CLI runs
@@ -431,20 +436,21 @@ print("MESH", [str(d) for d in make_mesh().devices])
 # it must launch (every other counter must read 0), and the runner once in a
 # fresh process on the script EXAMPLE_RUNNER_MATCH names
 K2_K3 = ("rowlse_fwd", "rowlse_bwd")
+TSNE_KERNELS = (*K2_K3, "tsne_attraction")  # a t-SNE or SNE step: K2, K3 and A1
 EXAMPLE_KERNELS = {
     "affinities/demo_ea_adaptivity": (),
     "affinities/single_vs_multi_device_umap_affinity": (),
-    "basics/basic_usage": ("fused_shared_repulsion", *K2_K3),
-    "basics/demo_ne_methods": ("fused_shared_repulsion", *K2_K3),
+    "basics/basic_usage": ("fused_shared_repulsion", *TSNE_KERNELS),
+    "basics/demo_ne_methods": ("fused_shared_repulsion", *TSNE_KERNELS),
     "basics/demo_pca_via_affinity_matcher": (),
-    "basics/demo_tsne_swiss_roll": K2_K3,
-    "basics/demo_tsne_vs_cosne": K2_K3,
+    "basics/demo_tsne_swiss_roll": TSNE_KERNELS,
+    "basics/demo_tsne_vs_cosne": TSNE_KERNELS,
     "basics/incremental_pca": (),
     "basics/parametric_umap": ("fused_shared_repulsion",),
     "distributed/distributed_umap": ("fused_shared_repulsion",),
     "distributed/knn_accuracy_benchmark": ("fused_shared_repulsion",),
     "distributed/neighborhood_preservation_benchmark": ("fused_shared_repulsion",),
-    "single_cell/single_cell": K2_K3,
+    "single_cell/single_cell": TSNE_KERNELS,
 }
 EXAMPLE_RUNNER_MATCH = "basic_usage"
 
@@ -496,10 +502,25 @@ print(json.dumps({"package": os.path.dirname(torchdr_tpu_torch.__file__),
 # finite, and each part on the card within STEP_ATOL + STEP_RTOL * |cpu| of
 # the same part on the CPU (float32 sums of up to 240 terms in another order;
 # the parts' CPU functions are held to the JAX formulas at 1e-5 in the tests)
-DIGITS_KERNELS = {"UMAP": ("fused_shared_repulsion",), "TSNE": K2_K3, "LargeVis": (),
-                  "InfoTSNE": (), "PACMAP": (), "SNE": K2_K3}
+DIGITS_KERNELS = {"UMAP": ("fused_shared_repulsion",), "TSNE": TSNE_KERNELS, "LargeVis": (),
+                  "InfoTSNE": (), "PACMAP": (), "SNE": TSNE_KERNELS}
 DIGITS_TW_TOL = 1e-5
 STEP_ATOL, STEP_RTOL = 1e-4, 1e-5
+
+# A1 (ops/csrc/tsne_attraction.cu), t-SNE's and SNE's attraction, is held in
+# both modes to its plain version and to a float64 evaluation at K1's limits,
+# relative to the largest entry where it passes 1, at these (label, n, k, d)
+# cases, each with a tenth of its ids pads and a hub (row 0 in the first
+# column of half the rows), and timed at A1_SHAPE, the benchmark's t-SNE
+# cell (70,000 rows, 90 neighbours, d = 2): on the exact kNN graph of that
+# cell's rows (make_clustered at 70,000 x 784, 50 clusters), and on the
+# synthetic graph with its hub of in-degree 35,000, whose one warp sets
+# the kernel's time
+A1_CASES = (("one row", 1, 90, 2), ("n=33 k=1", 33, 1, 3), ("n=1,000 d=1", 1_000, 90, 1),
+            ("n=1,000 d=3", 1_000, 90, 3), ("n=1,000 d=8", 1_000, 90, 8),
+            ("main d=2", 70_000, 90, 2), ("main d=3", 70_000, 90, 3))
+A1_SHAPE = (70_000, 90, 2)
+A1_HARD, TOL_A1 = 1e-4, 2e-5
 
 # kernels one call of the general K3 launches: its pair loop and its merge
 GENERAL_K3_KERNELS = 2
@@ -775,6 +796,179 @@ def time_k1(torch, gen, a: float, b: float, first, worst: float) -> dict:
     record["max_abs_err"] = worst
     print("k1_times " + json.dumps(times), flush=True)
     return record
+
+
+def a1_bound_ms(n: int, k: int, n_in: int, d: int) -> float:
+    """Least time for A1's work on an H100, which is bound by bytes: the ids
+    and weights of the n·k out-edges and of the ``n_in`` in-edges (every
+    edge read from both ends), ``in_ptr`` and Z read once, the gradient and
+    the rows' losses written once (its float32 operations, ~5d + 4 an edge,
+    take a few microseconds)."""
+    bytes_moved = 8 * n * k + 8 * n_in + 8 * (n + 1) + 8 * n * d + 4 * n
+    return bytes_moved / H100_BYTES_PER_S * 1e3
+
+
+def a1_inputs(torch, gen, n: int, k: int, d: int):
+    """Z (n, d), NN (n, k) int32 with a tenth of its ids pads (P = 0 there)
+    and a hub (row 0 in the first column of half the rows), P row-normalised."""
+    dev = torch.device("cuda")
+    Z = (3.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+    NN = torch.randint(0, n, (n, k), generator=gen, device=dev, dtype=torch.int32)
+    NN[: (n + 1) // 2, 0] = 0
+    NN[torch.rand((n, k), generator=gen, device=dev) < 0.1] = -1
+    P = torch.where(NN >= 0, torch.rand((n, k), generator=gen, device=dev), 0.0)
+    return Z, NN, P / P.sum(1, keepdim=True).clamp_min(1e-12)
+
+
+def hold_a1(torch, label, Z, NN, P, kernel) -> float:
+    """One A1 case against the float64 evaluation and the plain version, at
+    the limits stated beside ``A1_CASES``, for the gradient and the rows'
+    losses. Returns the larger max |kernel - plain| over the largest entry."""
+    from torchdr_tpu_torch.ops.attraction import knn_transpose
+    from torchdr_tpu_torch.ops.cuda.attraction_kernel import (
+        tsne_attraction,
+        tsne_attraction_plain,
+    )
+
+    transpose = knn_transpose(NN, P)
+    got = tsne_attraction(Z, NN, P, transpose, kernel)
+    plain = tsne_attraction_plain(Z, NN, P, transpose, kernel)
+    transpose_64 = tuple(t.double() if t.is_floating_point() else t for t in transpose)
+    ref = tsne_attraction_plain(Z.double(), NN, P.double(), transpose_64, kernel)
+    in_edges = transpose[1].numel()
+    worst = 0.0
+    for part, g, p, r in zip(("grad", "loss"), got, plain, ref):
+        scale = max(1.0, float(r.abs().max()))
+        e_plain = float((g - p).abs().max()) / scale
+        e_64 = float((g.double() - r).abs().max()) / scale
+        plain_64 = float((p.double() - r).abs().max()) / scale
+        lim_64 = min(A1_HARD, 3.0 * max(plain_64, 2e-6))
+        n, d = Z.shape
+        print(f"A1 {label} {kernel} {part}: n={n} k={NN.shape[1]} d={d} in-edges={in_edges} "
+              f"scale {scale:.3e}, over it: max|kernel-plain|={e_plain:.3e} "
+              f"(limit {TOL_A1:.1e}) "
+              f"max|kernel-float64|={e_64:.3e} (limit {lim_64:.1e}) "
+              f"max|plain-float64|={plain_64:.3e}", flush=True)
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"A1 {label} {kernel}: non-finite {part}")
+        if not e_64 <= lim_64:
+            raise AssertionError(f"A1 {label} {kernel}: {part} {e_64} from float64 > {lim_64}")
+        if not e_plain <= TOL_A1:
+            raise AssertionError(f"A1 {label} {kernel}: {part} {e_plain} from plain > {TOL_A1}")
+        worst = max(worst, e_plain)
+    return worst
+
+
+def a1_cell_graph(torch, n: int, k: int):
+    """The exact kNN graph (int32 ids) of the t-SNE cell's rows, with P = 1/k
+    on every edge, and its largest in-degree."""
+    from torchdr_tpu_torch.benchmarks.ivf_recall import make_clustered
+    from torchdr_tpu_torch.ops.distance import knn_graph
+
+    X, _ = make_clustered(n, D_IN, N_CLUSTERS, seed=SEED)
+    _, NN = knn_graph(torch.from_numpy(X).cuda(), k=k)
+    NN = NN.to(torch.int32).contiguous()
+    in_degree = torch.bincount(NN.reshape(-1).long(), minlength=n)
+    return NN, torch.full(NN.shape, 1.0 / k, device=NN.device), int(in_degree.max())
+
+
+def check_a1(torch) -> dict:
+    """A1 against the float64 evaluation and its plain version at
+    ``A1_CASES`` in both modes, then at ``A1_SHAPE`` on the cell's kNN
+    graph and on the synthetic one: two launches for equal bits, the step's
+    gradient through ``knn_attraction_loss`` (the transpose built on the
+    card) against autograd of the ``Z[NN]`` gather at ``TOL_A1``, and its
+    time, eager over many calls and replayed from a CUDA graph, beside its
+    bound, the plain version, the transpose a fit builds once, the step's
+    whole attraction through ``knn_attraction_loss`` and autograd, and the
+    autograd path of the ``Z[NN]`` gather that it replaced."""
+    from torchdr_tpu_torch.ops.attraction import knn_attraction_loss, knn_transpose
+    from torchdr_tpu_torch.ops.cuda.attraction_kernel import (
+        tsne_attraction,
+        tsne_attraction_plain,
+    )
+    from torchdr_tpu_torch.ops.distance import pairwise_distances_indexed
+    from torchdr_tpu_torch.ops.reductions import cross_entropy_loss
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    worst = 0.0
+    for label, n, k, d in A1_CASES:
+        inputs = a1_inputs(torch, gen, n, k, d)
+        for kernel in ("student", "gaussian"):
+            worst = max(worst, hold_a1(torch, label, *inputs, kernel))
+    Z, NN_hub, P_hub = a1_inputs(torch, gen, *A1_SHAPE)
+    n, k, d = A1_SHAPE
+    NN_cell, P_cell, max_in = a1_cell_graph(torch, n, k)
+    for kernel in ("student", "gaussian"):
+        worst = max(worst, hold_a1(torch, "the cell's kNN graph", Z, NN_cell, P_cell, kernel))
+    times = {}
+    for graph, NN, P, kernel in (("cell", NN_cell, P_cell, "student"),
+                                 ("cell", NN_cell, P_cell, "gaussian"),
+                                 ("hub", NN_hub, P_hub, "student")):
+        transpose = knn_transpose(NN, P)
+        first = tsne_attraction(Z, NN, P, transpose, kernel)
+        second = tsne_attraction(Z, NN, P, transpose, kernel)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"A1 {kernel}: two launches differ")
+        fn = lambda: tsne_attraction(Z, NN, P, transpose, kernel)  # noqa: E731
+
+        def step_attraction():  # as the fit's step takes it: the Function and its backward
+            Zg = Z.detach().requires_grad_(True)
+            return torch.autograd.grad(12.0 * knn_attraction_loss(Zg, P, NN, transpose, kernel),
+                                       Zg)
+
+        def autograd_attraction():  # the path A1 replaced
+            Zg = Z.detach().requires_grad_(True)
+            D = pairwise_distances_indexed(Zg, key_indices=NN, metric="sqeuclidean")
+            log_Q = -torch.log1p(D) if kernel == "student" else -D
+            return torch.autograd.grad(12.0 * cross_entropy_loss(P, log_Q, log=True), Zg)
+
+        # the whole chain, the transpose built on the card included, against
+        # the autograd path it replaced
+        got, want = step_attraction()[0], autograd_attraction()[0]
+        chain = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        print(f"A1 chain {graph} {kernel}: the Function's gradient against autograd of the "
+              f"gather, max|diff| over the largest entry {chain:.3e} (limit {TOL_A1:.1e})",
+              flush=True)
+        if not chain <= TOL_A1:
+            raise AssertionError(f"A1 chain {graph} {kernel}: {chain} from autograd > {TOL_A1}")
+        worst = max(worst, chain)
+        key = f"{graph} {kernel}"
+        times[key] = {
+            "kernel": "A1", "graph": graph, "mode": kernel, "n": n, "k": k, "d": d,
+            "in_edges": transpose[1].numel(),
+            "max_in_degree": max_in if graph == "cell" else int(torch.diff(transpose[0]).max()),
+            "ms": cuda_time_ms(fn, reps=200), "graph_ms": graph_ms(fn),
+            "step_ms": cuda_time_ms(step_attraction, reps=100),
+            "autograd_ms": cuda_time_ms(autograd_attraction, reps=50 if graph == "cell" else 5),
+            "plain_ms": cuda_time_ms(lambda: tsne_attraction_plain(Z, NN, P, transpose, kernel),
+                                     reps=10),
+            "transpose_ms": cuda_time_ms(lambda: knn_transpose(NN, P), reps=10),
+            "bound_ms": a1_bound_ms(n, k, transpose[1].numel(), d),
+        }
+        t = times[key]
+        print(f"A1 time {key} n={n} k={k} d={d} (largest in-degree {t['max_in_degree']}): "
+              f"kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} ms replayed from a CUDA graph), "
+              f"bound {t['bound_ms']:.5f} ms (bytes); the step's attraction {t['step_ms']:.4f} "
+              f"ms, the autograd path it replaced {t['autograd_ms']:.4f} ms; plain "
+              f"{t['plain_ms']:.4f} ms, transpose {t['transpose_ms']:.4f} ms", flush=True)
+    print("a1_times " + json.dumps(list(times.values())), flush=True)
+    main = times["cell student"]
+    return {
+        "name": "tsne_attraction (A1)",
+        "route": "cuda",
+        "source": "torchdr_tpu_torch/ops/csrc/tsne_attraction.cu",
+        "replaces": None,  # no TPU kernel: autograd of the Z[NN] gather
+        "launches": None,
+        "max_abs_err": worst,  # over the largest entry where it passes 1
+        "ms": main["ms"],
+        "graph_ms": main["graph_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["autograd_ms"],  # the autograd path of the gather
+    }
 
 
 def rowlse_bound_ms(n: int, d: int, which: str, kernel: str) -> tuple:
@@ -1088,7 +1282,9 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
     general = time_general_k2_k3(torch, gen, mesh, worst)
 
     X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
-    general_counts = {"rowlse_fwd_general": MESH_WORLD, "rowlse_bwd_general": MESH_WORLD}
+    # the attraction (A1) runs where Z lives, once a step
+    general_counts = {"rowlse_fwd_general": MESH_WORLD, "rowlse_bwd_general": MESH_WORLD,
+                      "tsne_attraction": 1}
     compare_affinities(torch, "TSNE", TSNE, X10, mesh)
     tsne = run_fit(torch, TSNE(random_state=0, mesh=mesh), X10, labels10, counters,
                    expect=general_counts)
@@ -1103,9 +1299,9 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
             "UMAP": run_fit(torch, UMAP(random_state=0), X, labels, counters,
                             expect=("fused_shared_repulsion",)),
             "TSNE": run_fit(torch, TSNE(random_state=0), X10, labels10, counters,
-                            expect=("rowlse_fwd", "rowlse_bwd")),
+                            expect=TSNE_KERNELS),
             "SNE": run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12), X10, labels10, counters,
-                           expect=("rowlse_fwd", "rowlse_bwd")),
+                           expect=TSNE_KERNELS),
         }
     for fit in (tsne, sne, umap):
         base = single[fit["model"]]
@@ -1116,7 +1312,8 @@ def run_mesh_path(torch, counters, X, labels, single=None) -> dict:
     if torch.cuda.device_count() > 1:
         cards = make_mesh()
         run_fit(torch, TSNE(random_state=0, mesh=cards), X10, labels10, counters,
-                expect={"rowlse_fwd_general": len(cards), "rowlse_bwd_general": len(cards)})
+                expect={"rowlse_fwd_general": len(cards), "rowlse_bwd_general": len(cards),
+                        "tsne_attraction": 1})
         run_fit(torch, UMAP(random_state=0, mesh=cards), X, labels, counters,
                 expect={"fused_shared_repulsion": len(cards)})
     else:
@@ -1920,7 +2117,7 @@ def run_engine_path(torch, counters, X, labels, single=None) -> dict:
             "UMAP": run_fit(torch, UMAP(random_state=0, device="auto"), X, labels, counters,
                             expect=("fused_shared_repulsion",)),
             "TSNE": run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10,
-                            counters, expect=("rowlse_fwd", "rowlse_bwd")),
+                            counters, expect=TSNE_KERNELS),
         }
     out = {}
 
@@ -1967,7 +2164,7 @@ def run_engine_path(torch, counters, X, labels, single=None) -> dict:
     out["parametric UMAP"] = fit
     out["parametric UMAP model"] = pumap  # phase 12 saves and loads it
 
-    _, fit = parametric(TSNE, X10, labels10, ("rowlse_fwd", "rowlse_bwd"))
+    _, fit = parametric(TSNE, X10, labels10, TSNE_KERNELS)
     print("engine parametric TSNE " + json.dumps(fit), flush=True)
     out["parametric TSNE"] = fit
 
@@ -2324,7 +2521,7 @@ def run_api_path(torch, counters, X, labels, smi: str, umap=None, pumap=None) ->
             torch, TSNE(random_state=0, max_iter=TRACE_STEPS, device="auto"), X10, counters, smi)
         out["trace_umap"] = traced_fit(
             torch, UMAP(random_state=0, max_iter=TRACE_STEPS, device="auto"), X, counters, smi)
-    for name, wrappers in (("trace_tsne", ("rowlse_fwd", "rowlse_bwd")),
+    for name, wrappers in (("trace_tsne", TSNE_KERNELS),
                            ("trace_umap", ("fused_shared_repulsion",))):
         for kernel in out[name]["kernels"].values():
             want = TRACE_STEPS if kernel["wrapper"] in wrappers else 0
@@ -2929,11 +3126,13 @@ def main() -> int:
         rowlse_fwd,
         rowlse_fwd_general,
     )
+    from torchdr_tpu_torch.ops.cuda.attraction_kernel import tsne_attraction
     from torchdr_tpu_torch.ops.cuda.hash_kernel import row_hash
     from torchdr_tpu_torch.ops.cuda.umap_kernel import fused_shared_repulsion
 
     counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
-                rowlse_bwd_general, *(kernel for _, kernel, _, _ in gather_kernels()), row_hash)
+                rowlse_bwd_general, *(kernel for _, kernel, _, _ in gather_kernels()), row_hash,
+                tsne_attraction)
 
     # 1. device
     smi = nvidia_smi_line()
@@ -2946,6 +3145,7 @@ def main() -> int:
 
     # 2. build
     k1_only = "--k1" in sys.argv[1:]
+    a1_only = "--a1" in sys.argv[1:]
     gather_only = "--gather" in sys.argv[1:]
     ivf_only = "--ivf" in sys.argv[1:]
     ne_only = "--ne" in sys.argv[1:]
@@ -2966,8 +3166,10 @@ def main() -> int:
         libs = build_libraries(["rowlse_fwd", "rowlse_bwd"])
     elif rowhash_only:
         libs = build_libraries(["row_hash"])
+    elif a1_only:
+        libs = build_libraries(["tsne_attraction"])
     elif mesh_only or engine_only or api_only or examples_only or digits_only:
-        libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd"])
+        libs = build_libraries(["umap_repulsion", "rowlse_fwd", "rowlse_bwd", "tsne_attraction"])
     elif k1_only or gather_only or ivf_only or tiers_only or bench_only:
         libs = build_libraries(["bucket_gather"] if gather_only else ["umap_repulsion"])
     else:
@@ -2977,6 +3179,10 @@ def main() -> int:
         sass_report(libs)
     if rowhash_only:
         run_row_hash_path(torch, smi)
+        print(smi, flush=True)
+        return 0
+    if a1_only:
+        print(json.dumps({"kernels": [check_a1(torch)]}), flush=True)
         print(smi, flush=True)
         return 0
     if gather_only:
@@ -3041,6 +3247,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     k2, k3 = check_k2_k3(torch, gen)
+    a1 = check_a1(torch)
 
     # 4. the paths: UMAP on 60k x 784, t-SNE and SNE on 10k x 784
     umap_model = UMAP(random_state=0, device="auto")
@@ -3048,15 +3255,16 @@ def main() -> int:
     k1["launches"] = umap["launches"]["fused_shared_repulsion"]
     X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
     tsne = run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10, counters,
-                   expect=("rowlse_fwd", "rowlse_bwd"))
+                   expect=TSNE_KERNELS)
     k2["launches"] = tsne["launches"]["rowlse_fwd"]
     k3["launches"] = tsne["launches"]["rowlse_bwd"]
+    a1["launches"] = tsne["launches"]["tsne_attraction"]
     # SNE's lr="auto" (n/4 = 2,500) diverges on these data, in the JAX
     # package as in the port (|Z| ~1e16 after 30 steps): a hub point whose
     # column of P sums to ~14/n makes lr times the attraction's curvature
     # ~7.6, beyond heavy-ball stability (2(1 + 0.8) = 3.6); n/12 is under it
     sne = run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
-                  counters, expect=("rowlse_fwd", "rowlse_bwd"))
+                  counters, expect=TSNE_KERNELS)
 
     # 5. LargeVis, InfoTSNE and PACMAP on 60k x 784, TSNEkhorn on 10k x 784
     run_ne_path(torch, counters, X, labels)
@@ -3089,7 +3297,8 @@ def main() -> int:
 
     # 13. the examples gallery: every script at its full size, and the runner
     gallery = run_examples_path(torch, counters)
-    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd")):
+    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd"),
+                      (a1, "tsne_attraction")):
         rec["gallery_launches"] = {script: line["launches"][name]
                                    for script, line in gallery.items()
                                    if line["launches"][name]}
@@ -3114,7 +3323,8 @@ def main() -> int:
 
     # 17. real data: the digits record's six fits, and the UMAP step's parts
     digits = run_digits_path(torch, counters, smi)
-    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd")):
+    for rec, name in ((k1, "fused_shared_repulsion"), (k2, "rowlse_fwd"), (k3, "rowlse_bwd"),
+                      (a1, "tsne_attraction")):
         rec["digits_launches"] = {model: [fit[name] for fit in fits]
                                   for model, fits in digits.items()
                                   if any(fit[name] for fit in fits)}
@@ -3130,7 +3340,7 @@ def main() -> int:
     rowhash["digits_launches"] = {model: [fit["row_hash"] for fit in fits]
                                   for model, fits in digits.items()}
 
-    print(json.dumps({"kernels": [k1, k2, k3, *gathers, rowhash]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, a1, *gathers, rowhash]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({
         "ok": True,

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from torchdr_tpu_torch import TSNE, UMAP
+from torchdr_tpu_torch import SNE, TSNE, UMAP
+from torchdr_tpu_torch.ops.attraction import knn_attraction_loss, knn_transpose
+from torchdr_tpu_torch.ops.cuda.attraction_kernel import tsne_attraction, tsne_attraction_plain
 from torchdr_tpu_torch.ops.cuda.gather_kernel import (
     bucket_2level,
     bucket_2level_plain,
@@ -368,11 +370,191 @@ def test_tsne_fit_on_the_card_launches_k2_k3_every_step(cuda):
     rng = np.random.default_rng(1)
     centers = rng.normal(scale=8.0, size=(4, 16))
     X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
-    rowlse_fwd.launches = rowlse_bwd.launches = 0
+    rowlse_fwd.launches = rowlse_bwd.launches = tsne_attraction.launches = 0
     model = TSNE(perplexity=20, max_iter=120, random_state=0)
     Z = model.fit_transform(X)
     assert rowlse_fwd.launches == rowlse_bwd.launches == model.n_iter_ == 120
+    assert tsne_attraction.launches == 120  # A1, the attraction, once a step
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
+
+
+def _a1_graph(cuda, n, k, d, seed, scale=3.0, mutual=False):
+    """Z (n, d), NN (n, k) int32 with about a tenth pads (P = 0 there), P
+    row-normalised. Ids drawn with repeats, and a hub (row 0 in the first
+    column of half the rows); or, with ``mutual``, row i's ids i ± k/2
+    distinct offsets, so that most edges are mutual pairs."""
+    rng = np.random.default_rng(seed)
+    Z = (scale * rng.normal(size=(n, d))).astype(np.float32)
+    if mutual:
+        half = rng.choice(np.arange(1, (n + 1) // 2), (k + 1) // 2, replace=False)
+        offsets = np.concatenate([half, n - half])[:k]
+        NN = (np.arange(n)[:, None] + offsets[None, :]) % n
+    else:
+        NN = rng.integers(0, n, size=(n, k))
+        NN[: (n + 1) // 2, 0] = 0
+    NN[rng.random((n, k)) < 0.1] = -1
+    P = np.where(NN >= 0, rng.random((n, k)), 0.0)
+    P = (P / np.maximum(P.sum(1, keepdims=True), 1e-12)).astype(np.float32)
+    return (torch.from_numpy(Z).to(cuda), torch.from_numpy(NN.astype(np.int32)).to(cuda),
+            torch.from_numpy(P).to(cuda))
+
+
+def _hold_a1(Z, NN, P, kernel):
+    """A1 against a float64 evaluation of its function (the plain version on
+    double tensors) and against the plain version in float32, at K1's
+    tolerances relative to the largest entry where it passes 1: within 1e-4
+    of float64, within 3x the plain version's own distance from it (floor
+    2e-6), and within 2e-5 of the plain version; the gradient and the rows'
+    losses alike."""
+    transpose = knn_transpose(NN, P)
+    before = tsne_attraction.launches
+    got = tsne_attraction(Z, NN, P, transpose, kernel)
+    assert tsne_attraction.launches == before + 1
+    plain = tsne_attraction_plain(Z, NN, P, transpose, kernel)
+    transpose_64 = tuple(t.double() if t.is_floating_point() else t for t in transpose)
+    ref = tsne_attraction_plain(Z.double(), NN, P.double(), transpose_64, kernel)
+    for g, p, r in zip(got, plain, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32 and torch.isfinite(g).all()
+        scale = max(1.0, float(r.abs().max()))
+        plain_64 = float((p.double() - r).abs().max()) / scale
+        assert float((g.double() - r).abs().max()) / scale <= min(1e-4, 3.0 * max(plain_64, 2e-6))
+        assert float((g - p).abs().max()) / scale <= 2e-5
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("k", [1, 90])
+@pytest.mark.parametrize("n", [1, 33, 1_000, 70_000])
+def test_a1_matches_plain(cuda, n, k, d, kernel):
+    _hold_a1(*_a1_graph(cuda, n, k, d, seed=n + k + d), kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [1_000, 70_000])
+def test_a1_matches_plain_on_mutual_pairs(cuda, n, d, kernel):
+    """Most edges mutual: a row meets each such neighbour among its
+    out-edges and again among its in-edges."""
+    _hold_a1(*_a1_graph(cuda, n, 90, d, seed=n + d, mutual=True), kernel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutual", [False, True])
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_a1_repeats_bit_for_bit(cuda, kernel, mutual):
+    Z, NN, P = _a1_graph(cuda, 70_000, 90, 2, seed=4, mutual=mutual)
+    transpose = knn_transpose(NN, P)
+    first = tsne_attraction(Z, NN, P, transpose, kernel)
+    second = tsne_attraction(Z, NN, P, transpose, kernel)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    grad, loss = tsne_attraction(Z, NN, P, transpose, kernel, grad=False)
+    assert grad is None and torch.equal(loss, first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_attraction_function_scales_its_gradient_by_the_cotangent(cuda, kernel):
+    """``knn_attraction_loss`` under an early-exaggeration coefficient and
+    through a map into Z (an encoder's chain rule), against float64
+    autograd of the ``Z[NN]`` gather's cross-entropy on the CPU: within
+    1e-4 of the largest entry; the value alone, without a gradient, too."""
+    from torchdr_tpu_torch.ops.distance import pairwise_distances_indexed
+    from torchdr_tpu_torch.ops.reductions import cross_entropy_loss
+
+    _, NN, P = _a1_graph(cuda, 2_000, 30, 2, seed=5)
+    rng = np.random.default_rng(5)
+    W = torch.from_numpy(rng.normal(size=(3, 2)))
+    X = torch.from_numpy(rng.normal(size=(NN.shape[0], 3)))
+
+    def cross_entropy(Z):
+        D = pairwise_distances_indexed(Z, key_indices=NN.cpu(), metric="sqeuclidean")
+        return cross_entropy_loss(P.cpu().double(), -torch.log1p(D) if kernel == "student"
+                                  else -D, log=True)
+
+    transpose = knn_transpose(NN, P)
+    Xc, Wg = X.float().to(cuda), W.float().to(cuda).requires_grad_(True)
+    before = tsne_attraction.launches
+    got = torch.autograd.grad(12.0 * knn_attraction_loss(Xc @ Wg, P, NN, transpose, kernel),
+                              Wg)[0]
+    assert tsne_attraction.launches == before + 1
+    W64 = W.clone().requires_grad_(True)
+    want = torch.autograd.grad(12.0 * cross_entropy(X @ W64), W64)[0]
+    assert float((got.cpu().double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    value = knn_attraction_loss(Xc @ Wg.detach(), P, NN, transpose, kernel)
+    want_value = float(cross_entropy(X @ W))
+    assert abs(float(value) - want_value) <= 1e-4 * abs(want_value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("cls", [TSNE, SNE])
+def test_fit_on_the_card_launches_a1_every_step_at_every_width(cuda, cls, d):
+    """A1 takes every width K2 and K3 take: a fit at n_components 1 or 8
+    launches it once a step, beside K2 and K3."""
+    rng = np.random.default_rng(2)
+    centers = rng.normal(scale=8.0, size=(4, 16))
+    X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
+    rowlse_fwd.launches = rowlse_bwd.launches = tsne_attraction.launches = 0
+    kw = {"lr": 1500 / 12} if cls is SNE else {}
+    model = cls(n_components=d, perplexity=20, max_iter=60, random_state=0, **kw)
+    Z = model.fit_transform(X)
+    assert tsne_attraction.launches == rowlse_fwd.launches == rowlse_bwd.launches == 60
+    assert Z.shape == (1500, d) and np.all(np.isfinite(Z))
+
+
+def _loss_gradients_model(cls, device, arrays, X, encoder=None):
+    """A TSNE or SNE (or, for "parametric", a t-SNE with ``encoder``, whose
+    starting weights are ``arrays["encoder"]``) holding the pre-loop state
+    ``arrays`` on ``device``, and a function of (it, coeff) giving the step's
+    gradient through ``_loss_gradients`` (or ``_encoder_gradients``) with
+    the constants a fit builds."""
+    from torchdr_tpu_torch.utils.interop import load_reference_state
+
+    parametric = cls == "parametric"
+    model = TSNE(encoder=encoder, device=device) if parametric else cls(device=device)
+    load_reference_state(model, arrays)
+    Xd = torch.from_numpy(X).to(device)
+    consts = model._build_consts(Xd)
+    assert ("in_ptr" in consts) == (device == "cuda")
+    if not parametric:
+        Z = torch.from_numpy(arrays["init_embedding"]).to(device)
+        return lambda it, coeff: model._loss_gradients(Z, consts, {}, it, coeff)[0]
+    model._init_embedding(Xd, draw=arrays["encoder"])
+    theta, to_Z = model._encoder_map(Xd)
+    return lambda it, coeff: model._encoder_gradients(to_Z, theta, consts, {}, it, coeff)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [TSNE, SNE, "parametric"])
+def test_loss_gradients_on_the_card_match_the_cpu(cuda, cls):
+    """A step's gradient with A1 (and K2, K3) on the card against the CPU
+    path, under early exaggeration (step 0, coefficient 12) and after it
+    (step 300): within 1e-4 of the largest entry, K3's tolerance."""
+    from torchdr_tpu_torch.utils.encoders import init_encoder_variables, make_mlp_encoder
+
+    n, k = 3001, 30
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    NN = np.stack([rng.choice(np.delete(np.arange(n), i), k, replace=False) for i in range(n)])
+    NN[rng.random((n, k)) < 0.05] = -1
+    P = np.where(NN >= 0, rng.random((n, k)), 0.0)
+    arrays = {"affinity_in": (P / P.sum()).astype(np.float32), "NN_indices": NN,
+              "init_embedding": rng.normal(size=(n, 2)).astype(np.float32)}
+    encoder = make_mlp_encoder(2, (16,)) if cls == "parametric" else None
+    if encoder is not None:  # one draw of the weights, for both devices
+        gen = torch.Generator().manual_seed(0)
+        arrays["encoder"] = init_encoder_variables(encoder, torch.from_numpy(X), gen)
+    on_card = _loss_gradients_model(cls, "cuda", arrays, X, encoder)
+    on_cpu = _loss_gradients_model(cls, "cpu", arrays, X, encoder)
+    for it, coeff in ((0, 12.0), (300, 1.0)):
+        before = tsne_attraction.launches
+        got = on_card(it, coeff).cpu()
+        assert tsne_attraction.launches == before + 1
+        want = on_cpu(it, coeff)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def _hold_general_to_plain(Zq, Z, off, n_total, kernel, exclude_diag=True):
@@ -572,12 +754,13 @@ def test_tsne_mesh_fit_on_the_card_launches_the_general_kernels(cuda):
     centers = rng.normal(scale=8.0, size=(4, 16))
     X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
     mesh = make_mesh(devices=[cuda] * 3)
-    for f in (rowlse_fwd, rowlse_bwd, rowlse_fwd_general, rowlse_bwd_general):
+    for f in (rowlse_fwd, rowlse_bwd, rowlse_fwd_general, rowlse_bwd_general, tsne_attraction):
         f.launches = 0
     model = TSNE(perplexity=20, max_iter=120, random_state=0, mesh=mesh)
     Z = model.fit_transform(X)
     assert rowlse_fwd.launches == rowlse_bwd.launches == 0
     assert rowlse_fwd_general.launches == rowlse_bwd_general.launches == 3 * model.n_iter_
+    assert tsne_attraction.launches == model.n_iter_  # where Z lives, on the first device
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
 
 
@@ -1074,7 +1257,7 @@ def test_ne_step_on_the_card_equals_the_cpu(cuda, name):
                                   "TSNEkhorn"])
 def test_ne_fit_on_the_card_launches_no_kernel(cuda, name):
     counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, bucket_take, bucket_onehot,
-                bucket_2level)
+                bucket_2level, tsne_attraction)
     for fn in counters:
         fn.launches = 0
     model = _ne_models()[name](cuda.type, max_iter=60)
@@ -1192,7 +1375,7 @@ def _engine_data(n=1500, d=16, seed=3):
 
 def _zero_counters():
     counters = (fused_shared_repulsion, rowlse_fwd, rowlse_bwd, rowlse_fwd_general,
-                rowlse_bwd_general)
+                rowlse_bwd_general, tsne_attraction)
     for fn in counters:
         fn.launches = 0
     return counters
@@ -1215,9 +1398,9 @@ def test_parametric_fit_on_the_card_launches_its_kernels_every_step(cuda, model)
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z)) and est.n_iter_ == 40
     if model == "UMAP":
         assert fused_shared_repulsion.launches == 40
-        assert rowlse_fwd.launches == rowlse_bwd.launches == 0
+        assert rowlse_fwd.launches == rowlse_bwd.launches == tsne_attraction.launches == 0
     else:
-        assert rowlse_fwd.launches == rowlse_bwd.launches == 40
+        assert rowlse_fwd.launches == rowlse_bwd.launches == tsne_attraction.launches == 40
         assert fused_shared_repulsion.launches == 0
     assert all(v.device.type == "cuda" for v in est.encoder_variables_.values())
     Zt = est.transform(torch.from_numpy(X[:100]).to(cuda))

@@ -5,10 +5,14 @@ exact nearest neighbours). Attraction is a cross-entropy over the kNN
 edges; the exact O(n²) repulsion runs through
 ``ops/reduce.pairwise_logkernel_rowlse``, whose forward is K2 and whose
 backward is K3 on the card, so no n×n matrix is formed in either pass.
-Gradients come by autograd of the loss. When the fit has a device mesh,
-the repulsion is row-sharded over it
+Gradients come by autograd of the loss. On the card (float32)
+the attraction is ``ops/attraction.knn_attraction_loss``: one launch of A1
+a step over each row's out-edges and in-edges, the in-edges listed once a
+fit in the loop's constants; elsewhere it is the cross-entropy of a
+``Z[NN]`` gather, by autograd. When the fit has a device mesh, the
+repulsion is row-sharded over it
 (``ops/reduce.pairwise_logkernel_rowlse_sharded``: the general K2 and K3
-on every shard, every step).
+on every shard, every step); the attraction runs where Z lives.
 """
 
 from __future__ import annotations
@@ -18,10 +22,15 @@ from typing import Dict, Optional, Union
 import torch
 
 from ...affinity.entropic import EntropicAffinity
+from ...ops.attraction import knn_attraction_loss, knn_transpose
 from ...ops.distance import pairwise_distances_indexed
 from ...ops.reduce import pairwise_logkernel_rowlse, pairwise_logkernel_rowlse_sharded
 from ...ops.reductions import cross_entropy_loss
 from .base import NeighborEmbedding
+
+
+#: the loop's constants that hold the kNN graph's transpose (A1 reads them)
+_TRANSPOSE = ("in_ptr", "in_src", "in_P")
 
 
 def _rowlse_maybe_sharded(model, Z, kernel):
@@ -103,8 +112,26 @@ class _EntropicNeighborEmbedding(NeighborEmbedding):
             **kwargs,
         )
 
+    def _build_consts(self, X):
+        """The loop's constants; on the card, also the kNN graph's transpose
+        (``in_ptr``, ``in_src``, ``in_P``: ``ops/attraction.knn_transpose``)
+        that A1 reads each edge's other end from."""
+        consts = super()._build_consts(X)
+        P, NN = consts["P"], consts.get("NN")
+        if NN is not None and P.is_cuda and P.dtype == torch.float32:
+            consts.update(zip(_TRANSPOSE, knn_transpose(NN, P)))
+        return consts
+
     def _knn_sq_dists(self, Z, consts):
         return pairwise_distances_indexed(Z, key_indices=consts["NN"], metric="sqeuclidean")
+
+    def _a1_attraction(self, Z, consts, kernel):
+        """Σ P φ(d) over the kNN edges by A1, where the constants hold the
+        transpose and Z is a float32 CUDA tensor; else None."""
+        if "in_ptr" not in consts or not Z.is_cuda or Z.dtype != torch.float32:
+            return None
+        transpose = tuple(consts[key] for key in _TRANSPOSE)
+        return knn_attraction_loss(Z, consts["P"], consts["NN"], transpose, kernel)
 
 
 class TSNE(_EntropicNeighborEmbedding):
@@ -112,6 +139,11 @@ class TSNE(_EntropicNeighborEmbedding):
 
     Defaults follow the JAX package: lr="auto", SGD with "auto" momentum
     (0.5, then 0.8), early exaggeration 12.0 for 250 iterations, PCA init.
+
+    On the card (float32) a step launches K2 and K3
+    for the repulsion and A1 for the attraction, whose gradient it writes
+    from each row's out-edges and in-edges (the kNN graph's transpose, built
+    once a fit); elsewhere the attraction is autograd of a ``Z[NN]`` gather.
     """
 
     def __init__(
@@ -154,7 +186,11 @@ class TSNE(_EntropicNeighborEmbedding):
         )
 
     def _attractive_loss(self, Z, consts, carry, it):
-        """Cross-entropy of P against the student log-kernel on the kNN edges."""
+        """Cross-entropy of P against the student log-kernel on the kNN edges
+        (A1 on the card)."""
+        loss = self._a1_attraction(Z, consts, "student")
+        if loss is not None:
+            return loss, carry
         log_Q = -torch.log1p(self._knn_sq_dists(Z, consts))
         return cross_entropy_loss(consts["P"], log_Q, log=True), carry
 
@@ -167,9 +203,18 @@ class TSNE(_EntropicNeighborEmbedding):
 
 class SNE(_EntropicNeighborEmbedding):
     """Stochastic Neighbor Embedding (Hinton & Roweis 2002): gaussian output
-    kernel, row-wise log-normalization."""
+    kernel, row-wise log-normalization.
+
+    On the card its step launches the same kernels as :class:`TSNE`'s, in
+    their gaussian mode: K2 and K3 for the repulsion, A1 for the attraction.
+    """
 
     def _attractive_loss(self, Z, consts, carry, it):
+        """Cross-entropy of P against the gaussian log-kernel on the kNN edges
+        (A1 on the card)."""
+        loss = self._a1_attraction(Z, consts, "gaussian")
+        if loss is not None:
+            return loss, carry
         return cross_entropy_loss(consts["P"], -self._knn_sq_dists(Z, consts), log=True), carry
 
     def _repulsive_loss(self, Z, consts, carry, it):

@@ -1,5 +1,6 @@
 """Distance, kNN, root-search, sparse and kernel primitives."""
 
+from .attraction import knn_attraction_loss, knn_transpose
 from .distance import (
     knn_graph,
     knn_graph_host_chunked,
@@ -46,6 +47,7 @@ __all__ = [
     "PQCodebook", "pq_train", "pq_encode", "pq_search", "pq_knn",
     "LIST_METRICS", "pairwise_block",
     "pairwise_logkernel_logsumexp", "pairwise_logkernel_rowlse",
+    "knn_attraction_loss", "knn_transpose",
     "center_kernel", "cross_entropy_loss", "entropy", "kmax", "kmin",
     "logsumexp_red", "matrix_power", "square_loss", "sum_red", "svd_flip",
     "binary_search", "false_position", "init_bounds",

@@ -68,6 +68,10 @@ SIGNATURES = {
     "row_hash": {
         "row_hash": [_V, _V, _I, _I, _V],  # X, out, n, m, stream
     },
+    "tsne_attraction": {
+        # Z, nn, P, in_ptr, in_src, in_P, grad, loss, n, k, d, gaussian, stream
+        "tsne_attraction": [*[_V] * 8, *[_I] * 4, _V],
+    },
 }
 
 _LOADED: Dict[str, object] = {}  # function -> the bound entry point
