@@ -1,20 +1,19 @@
-"""What the gallery's CPU tests share: a script run in-process on one torch
-thread, and the gates every labelled fit meets at the tests' sizes."""
+"""What the gallery's CPU tests share: a script run in-process, and the
+gates every labelled fit meets at the tests' sizes."""
 
 import importlib
 
 import numpy as np
 
-from _torch_threads import one_torch_thread
 from torchdr_tpu_torch.examples import _common
 from torchdr_tpu_torch.examples.__main__ import module_name
 
 
 def run(script, *argv):
-    """The port's script on the CPU, in-process, on one torch thread."""
-    with one_torch_thread():
-        return importlib.import_module(module_name(script + ".py")).main(
-            ["--device", "cpu", *argv])
+    """The port's script on the CPU, in-process, on the threads that the
+    calling module's ``_torch_threads`` fixture sets: one torch thread."""
+    return importlib.import_module(module_name(script + ".py")).main(
+        ["--device", "cpu", *argv])
 
 
 def check_gates(out):

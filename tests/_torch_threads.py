@@ -1,25 +1,39 @@
-"""Warm-up of the CPU worker threads for the port's tests that compare with
-the JAX package, and the loop that measures what it is for.
+"""The one rule for the CPU threads of the port's tests, and the loop that
+measures what its XLA warm-up is for.
 
-A float32 evaluation of the JAX package's ``pairwise_block`` once came out
-up to 3.1e-4 from float64 in a six-worker run of the suite, and did not
-recur; the comparisons it could upset evaluate the JAX function in
-float64. Torch's first multi-threaded float32 row sum in a fresh process
-sometimes reads another summation order than every later call (3.2e-5
-from float64 over 4,096 terms, against 1.5e-7). ``warm_worker_threads``
-runs parallel work on torch's and XLA's threads before a module's
-comparisons; a test module takes it with
-``from _torch_threads import warm_worker_threads  # noqa: F401``.
+Every ``tests/test_torch_*.py`` takes the autouse, module-scoped fixture
+``worker_threads`` by one line,
+``from _torch_threads import worker_threads  # noqa: F401``. For the
+module's tests it
 
-Run as a script, it starts fresh processes, half of them warmed first, and
-counts those whose first results leave float64 by more than 1e-5
-relative (absolute below 1)::
+- runs torch's CPU ops on one thread, and gives the count it found back
+  on teardown. A fit of a few hundred steps of small ops takes seconds on
+  one thread, and minutes on torch's default pool of a thread per core
+  while the suite's other workers hold the cores. On one thread torch's
+  first float32 row sum in a process also takes the same order as every
+  later one;
+- warms XLA's threads before the module's comparisons with the JAX
+  package. A float32 evaluation of the JAX package's ``pairwise_block``
+  once came out up to 3.1e-4 from float64 in a six-worker run of the
+  suite, and did not recur; the comparisons it could upset evaluate the
+  JAX function in float64.
+
+No other file under ``tests/`` sets torch's thread count, which
+``tests/test_torch_threads.py`` checks. ``tests/test_torch_cuda.py`` is the
+one port file without the fixture: it runs on the card under
+``--noconftest``, where JAX is not installed, and on the CPU its tests
+skip. A test that starts a Python child leaves the child on torch's
+default threads.
+
+Run as a script, it starts fresh processes on one torch thread, as a port
+test runs, half of them with XLA's warm-up first, and counts those whose
+first results leave float64 by more than 1e-5 relative (absolute below
+1)::
 
     python tests/_torch_threads.py --procs 40 --parallel 6
 """
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -32,34 +46,22 @@ import pytest
 LIMIT = 1e-5
 
 
-def _warm():
+def _warm_xla():
     import jax.numpy as jnp
-    import torch
 
     for _ in range(3):
-        torch.exp(torch.randn(512, 512)).double().sum(dim=1)
         np.asarray(jnp.exp(jnp.ones((512, 512))) @ jnp.ones((512, 512)))
 
 
 @pytest.fixture(scope="module", autouse=True)
-def warm_worker_threads():
-    _warm()
-
-
-@contextlib.contextmanager
-def one_torch_thread():
-    """Run torch's CPU ops on one thread inside the block. A fit of a few
-    hundred steps of small ops (100 rows) takes seconds so, and minutes
-    with torch's default threads when the suite's other workers hold the
-    cores."""
+def worker_threads():
     import torch
 
+    _warm_xla()
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+    yield
+    torch.set_num_threads(n)
 
 
 def _clustered(n, d, seed, n_clusters=5):
@@ -74,9 +76,10 @@ def _rel(got, want):
 
 
 def _child(warm: bool) -> dict:
-    """The first results of a fresh process against float64 numpy: the
-    inputs and functions of ``test_pairwise_block_matches_jax`` and
-    ``test_rowlse_matches_jax_xla_tier``, and a multi-threaded row sum."""
+    """The first results of a fresh process on one torch thread against
+    float64 numpy: the inputs and functions of
+    ``test_pairwise_block_matches_jax`` and
+    ``test_rowlse_matches_jax_xla_tier``."""
     import jax.numpy as jnp
     import torch
 
@@ -85,19 +88,17 @@ def _child(warm: bool) -> dict:
     from torchdr_tpu_torch.ops.metrics import pairwise_block
     from torchdr_tpu_torch.ops.reduce import pairwise_logkernel_rowlse
 
+    torch.set_num_threads(1)
     if warm:
-        _warm()
+        _warm_xla()
     X, Y = _clustered(300, 32, seed=0), _clustered(200, 32, seed=1)
     dist64 = np.sqrt(((X.astype(np.float64)[:, None] - Y.astype(np.float64)[None]) ** 2).sum(-1))
-    E = np.random.default_rng(2).normal(size=(512, 4096)).astype(np.float32)
-    rowsum64 = np.exp(E.astype(np.float64)).sum(1)
     Z = (2.0 * np.random.default_rng(257).normal(size=(257, 2))).astype(np.float32)
     Z64 = Z.astype(np.float64)
     q = 1.0 / (1.0 + ((Z64[:, None] - Z64[None]) ** 2).sum(-1))
     np.fill_diagonal(q, 0.0)
     lse64 = np.log(q.sum(1))
     return {
-        "torch_rowsum": _rel(torch.exp(torch.from_numpy(E)).sum(dim=1).numpy(), rowsum64),
         "torch_pairwise": _rel(
             pairwise_block(torch.from_numpy(X), torch.from_numpy(Y), "euclidean").numpy(), dist64
         ),

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu import AffinityMatcher as JaxAffinityMatcher
 from torchdr_tpu.affinity.entropic import NormalizedGaussianAffinity as JaxNGA
 from torchdr_tpu.affinity.entropic import NormalizedStudentAffinity as JaxNSA

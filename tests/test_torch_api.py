@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu import AffinityMatcher as JaxAffinityMatcher
 from torchdr_tpu import PCA as JaxPCA
 from torchdr_tpu import UMAPAffinity as JaxUMAPAffinity

@@ -8,6 +8,8 @@ import importlib.util
 import inspect
 from pathlib import Path
 
+from _torch_threads import worker_threads  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 SUBPACKAGES = ["", ".ops", ".utils", ".parallel", ".eval", ".affinity", ".models",
                ".models.neighbor", ".models.spectral"]

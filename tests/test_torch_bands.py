@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.models.neighbor.umap import UMAP as JaxUMAP
 from torchdr_tpu_torch import UMAP
 from torchdr_tpu_torch.eval import silhouette_score
@@ -124,8 +124,7 @@ def test_bands_visit_the_prefix_of_the_step_s_trailing_zeros(band_states):
 
 def test_small_bands_fit_keeps_the_silhouette_floor():
     X, y = _blobs()
-    with one_torch_thread():
-        Z = UMAP(n_neighbors=12, max_iter=300, random_state=0, edge_schedule="bands",
-                 device="cpu").fit_transform(X)
+    Z = UMAP(n_neighbors=12, max_iter=300, random_state=0, edge_schedule="bands",
+             device="cpu").fit_transform(X)
     assert np.isfinite(Z).all()
     assert silhouette_score(Z, y, device="cpu") > 0.8

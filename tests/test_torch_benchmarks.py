@@ -26,7 +26,7 @@ import pytest
 import torch
 
 import torchdr_tpu
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops.distance import knn_graph as jax_knn_graph
 from torchdr_tpu_torch.benchmarks import bench, knn_benchmark, umap_single_cell
 
@@ -91,8 +91,7 @@ def test_bench_child_builds_searches_and_reads_recall_on_the_cpu():
     # 10,000 rows: 10 a centre. At 4,096 (4 a centre) recall@15 is set by the
     # draw in both packages (0.82-0.92 in the port over four data seeds, the
     # JAX script's own draw 0.8906); at 10,000 the JAX draw reads 0.9337
-    with one_torch_thread():  # the suite's other workers hold the cores
-        out = bench._run_child(n=10_000, nlist=32, device="cpu")
+    out = bench._run_child(n=10_000, nlist=32, device="cpu")
     assert set(out) == {"build_s", "search_s", "recall"}
     assert out["build_s"] > 0 and out["search_s"] > 0
     assert out["recall"] >= 0.9
@@ -115,8 +114,7 @@ def test_bench_prints_the_failure_line_and_exits_1_when_the_child_times_out(monk
 
 
 def test_umap_single_cell_prints_its_line(capsys):
-    with one_torch_thread():
-        out = umap_single_cell.main(["--n", "600", "--iters", "20", "--device", "cpu"])
+    out = umap_single_cell.main(["--n", "600", "--iters", "20", "--device", "cpu"])
     assert re.fullmatch(r"UMAP n=600 d=50 iters=20: \d+\.\ds silhouette=-?\d\.\d{3}\n",
                         capsys.readouterr().out)
     assert out["embedding"].shape == (600, 2) and np.isfinite(out["embedding"]).all()

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.models.neighbor.umap import UMAP as JaxUMAP
 from torchdr_tpu.models.spectral.pca import PCA as JaxPCA
 from torchdr_tpu.utils import checkpoint as jax_checkpoint

@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch.cli import main
 from torchdr_tpu_torch.parallel import make_mesh
 from torchdr_tpu_torch.parallel.mesh import VIRTUAL_CPU_DEVICES_ENV

@@ -32,7 +32,7 @@ import pytest
 import torch
 from jax.scipy.special import logsumexp
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.models.neighbor.cosne import COSNE as JaxCOSNE
 from torchdr_tpu.ops.reduce import pairwise_logkernel_rowlse_autodiff as jax_rowlse
 from torchdr_tpu.utils.optim import make_optimizer as jax_make_optimizer
@@ -213,9 +213,8 @@ def test_twenty_steps_of_the_loop_match_jax():
 
 def test_two_moons_fit_stays_in_the_ball_above_the_silhouette_floor():
     X, y = _moons()
-    with one_torch_thread():
-        Z = COSNE(perplexity=15, max_iter=500, lr=1e0, random_state=0,
-                  device="cpu").fit_transform(X)
+    Z = COSNE(perplexity=15, max_iter=500, lr=1e0, random_state=0,
+              device="cpu").fit_transform(X)
     assert np.isfinite(Z).all() and np.linalg.norm(Z, axis=1).max() < 1.0
     assert silhouette_score(Z, y, device="cpu") > 0.15
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.utils import wrappers as jax_wrappers
 from torchdr_tpu_torch import PCA, UMAP
 from torchdr_tpu_torch.ops.cuda.hash_kernel import deduplicate_fit_input, row_hash

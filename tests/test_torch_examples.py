@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 
 from _examples_run import run
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch.examples import _common, _data
 from torchdr_tpu_torch.examples.__main__ import find_examples, module_name
 from torchdr_tpu_torch.examples.__main__ import main as run_examples

@@ -14,7 +14,7 @@ each takes minutes on one thread. The tests take 500, 1,000 and 1,000 rows
 import pytest
 
 from _examples_run import check_gates, run
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("script,argv", [

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from _examples_run import check_gates, run
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 
 QUALITY_TOL = 0.05
 

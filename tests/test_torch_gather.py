@@ -27,7 +27,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 import torchdr_tpu_torch.ops.cuda.build as build
 from torchdr_tpu_torch.benchmarks import gather_microbench as gm
 from torchdr_tpu_torch.ops.cuda.gather_kernel import (

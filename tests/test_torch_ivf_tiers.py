@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops import ivf as jivf
 from torchdr_tpu.ops.kmeans import _plus_plus_init as jax_plus_plus_init
 from torchdr_tpu.parallel import ivf as jpivf
@@ -322,9 +322,8 @@ def test_estimator_int8_graph(data):
     centers = rng.normal(scale=6.0, size=(20, 24)).astype(np.float32)
     X = (centers[rng.integers(0, 20, 2000)] + rng.normal(size=(2000, 24))).astype(np.float32)
     cfg = KnnConfig(mode="ivf", nprobe=8, n_clusters=32, storage="int8")
-    with one_torch_thread():
-        m = UMAP(n_neighbors=10, max_iter=20, random_state=0, knn_mode=cfg, device="cpu")
-        Z = m.fit_transform(X)
+    m = UMAP(n_neighbors=10, max_iter=20, random_state=0, knn_mode=cfg, device="cpu")
+    Z = m.fit_transform(X)
     assert Z.shape == (2000, 2) and np.all(np.isfinite(Z))
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops.kmeans import _plus_plus_init as jax_plus_plus_init
 from torchdr_tpu.ops.kmeans import kmeans_fit as jax_kmeans_fit
 from torchdr_tpu_torch.ops.kmeans import kmeans_fit

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity import MAGICAffinity as JaxMAGIC
 from torchdr_tpu.affinity import PHATEAffinity as JaxPHATE
 from torchdr_tpu.affinity import SelfTuningAffinity as JaxSelfTuning

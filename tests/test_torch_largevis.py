@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.neighbor.largevis import InfoTSNE as JaxInfoTSNE
 from torchdr_tpu.models.neighbor.largevis import LargeVis as JaxLargeVis
@@ -202,8 +202,7 @@ def test_moons_quality(model, toy_moons):
     if model == "InfoTSNE":
         kw["n_negatives"] = 50
     jax_cls, port_cls = MODELS[model]
-    with one_torch_thread():
-        Z = port_cls(device="cpu", **kw).fit_transform(X)
+    Z = port_cls(device="cpu", **kw).fit_transform(X)
     assert Z.shape == (100, 2) and np.isfinite(Z).all()
     s_port = float(silhouette_score(Z, y))
     s_jax = float(silhouette_score(np.asarray(jax_cls(**kw).fit_transform(X)), y))
@@ -219,8 +218,7 @@ def test_knn_mode_reaches_the_affinity(model):
     m = MODELS[model][1](perplexity=10, max_iter=20, random_state=0, device="cpu",
                          knn_mode=KnnConfig(mode="ivf", nprobe=8, n_clusters=16))
     assert m.affinity_in.knn_mode == "ivf"
-    with one_torch_thread():
-        Z = m.fit_transform(X)
+    Z = m.fit_transform(X)
     assert Z.shape == (800, 2) and np.isfinite(Z).all()
     assert "knn" in m.timings_
 

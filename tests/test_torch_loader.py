@@ -13,6 +13,7 @@ import pytest
 import torch
 from torch.utils.data import DataLoader, TensorDataset
 
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops.loader import BatchSource as JaxBatchSource
 from torchdr_tpu_torch.ops.ivf import ivf_build_from_batches, ivf_knn
 from torchdr_tpu_torch.ops.loader import (

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.utils import manifold as jm
 from torchdr_tpu_torch.utils import manifold as tm
 

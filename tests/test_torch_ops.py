@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity.knn_normalized import _umap_calibrate as jax_calibrate
 from torchdr_tpu.ops.distance import knn_graph as jax_knn_graph
 from torchdr_tpu.ops.metrics import pairwise_block as jax_pairwise_block

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.utils.optim import make_optimizer as jax_make_optimizer
 from torchdr_tpu_torch.utils.optim import make_optimizer
 

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity import entropic as jent
 from torchdr_tpu.affinity.quadratic import DoublyStochasticQuadraticAffinity as JaxQuadratic
 from torchdr_tpu.affinity.quadratic import _solve_quadratic_ds as _jax_quadratic_ds
@@ -46,13 +46,6 @@ from torchdr_tpu_torch import (
 from torchdr_tpu_torch.affinity.entropic import _log_Pse, sea_dual_value
 from torchdr_tpu_torch.ops.reductions import entropy
 from torchdr_tpu_torch.utils.optim import lbfgs_minimize
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _torch_on_one_thread():
-    """The solvers here are loops of hundreds of small ops."""
-    with one_torch_thread():
-        yield
 
 
 def _X(n=100, d=6, seed=1):

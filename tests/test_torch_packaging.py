@@ -15,6 +15,7 @@ import sys
 import zipfile
 from pathlib import Path
 
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch.ops.cuda import build
 from torchdr_tpu_torch.utils import native_loader
 

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity.knn_normalized import PACMAPAffinity as JaxPACMAPAffinity
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.neighbor.pacmap import PACMAP as JaxPACMAP
@@ -198,8 +198,7 @@ def test_moons_quality(toy_moons):
     port: silhouette above 0.15 and within 0.1 of the JAX package's."""
     X, y = toy_moons
     kw = dict(n_neighbors=10, max_iter=450, random_state=0)
-    with one_torch_thread():
-        Z = PACMAP(device="cpu", **kw).fit_transform(X)
+    Z = PACMAP(device="cpu", **kw).fit_transform(X)
     assert Z.shape == (100, 2) and np.isfinite(Z).all()
     s_port = float(silhouette_score(Z, y))
     assert s_port > 0.15
@@ -216,8 +215,7 @@ def test_knn_mode_reaches_the_affinity():
     m = PACMAP(n_neighbors=10, max_iter=40, random_state=0, device="cpu",
                knn_mode=KnnConfig(mode="ivf", nprobe=8, n_clusters=16))
     assert m.affinity_in.knn_mode == "ivf"
-    with one_torch_thread():
-        Z = m.fit_transform(X)
+    Z = m.fit_transform(X)
     assert Z.shape == (800, 2) and np.isfinite(Z).all()
 
 

@@ -48,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity.entropic import EntropicAffinity as JaxEntropicAffinity
 from torchdr_tpu.affinity.knn_normalized import UMAPAffinity as JaxUMAPAffinity
 from torchdr_tpu.models.neighbor.tsne import SNE as JaxSNE
@@ -503,9 +503,8 @@ def test_tsne_mesh_fit_quality(mesh):
     from sklearn.datasets import make_moons
 
     X, y = make_moons(n_samples=96, noise=0.05, random_state=0)
-    with one_torch_thread():
-        Z = TSNE(perplexity=15, max_iter=300, random_state=0, mesh=mesh,
-                 device="cpu").fit_transform(X.astype(np.float32))
+    Z = TSNE(perplexity=15, max_iter=300, random_state=0, mesh=mesh,
+             device="cpu").fit_transform(X.astype(np.float32))
     assert silhouette_score(Z, y, device="cpu") > 0.15
 
 
@@ -514,11 +513,10 @@ def test_umap_mesh_fit_matches_the_single_device_fit(mesh):
 
     X, _ = make_moons(n_samples=96, noise=0.05, random_state=0)
     X = X.astype(np.float32)
-    with one_torch_thread():
-        Z1 = UMAP(n_neighbors=15, max_iter=200, random_state=0, device="cpu").fit_transform(X)
-        model = UMAP(n_neighbors=15, max_iter=200, random_state=0, distributed=True, mesh=mesh,
-                     device="cpu")
-        Z2 = model.fit_transform(X)
+    Z1 = UMAP(n_neighbors=15, max_iter=200, random_state=0, device="cpu").fit_transform(X)
+    model = UMAP(n_neighbors=15, max_iter=200, random_state=0, distributed=True, mesh=mesh,
+                 device="cpu")
+    Z2 = model.fit_transform(X)
     assert model.affinity_in._active_mesh() is mesh
     np.testing.assert_array_equal(Z1, Z2)
 
@@ -532,8 +530,7 @@ def _umap_pre_loop(model, X):
         return Z0, 0, 0.0
 
     model._optimize = capture
-    with one_torch_thread():
-        model.fit_transform(X)
+    model.fit_transform(X)
     return state["Z0"], state["consts"], state["carry0"]
 
 
@@ -612,10 +609,9 @@ def test_mesh_fit_keeps_its_state_on_the_first_device(model_cls, mesh):
     centers = rng.normal(scale=6.0, size=(4, 8))
     X = (centers[rng.integers(0, 4, 200)] + rng.normal(size=(200, 8))).astype(np.float32)
     kw = dict(perplexity=10, max_iter=5, random_state=0, device="cpu")
-    with one_torch_thread():
-        single = model_cls(**kw).fit_transform(X)
-        model = model_cls(mesh=mesh, **kw)
-        Z = model.fit_transform(X)
+    single = model_cls(**kw).fit_transform(X)
+    model = model_cls(mesh=mesh, **kw)
+    Z = model.fit_transform(X)
     assert model._fit_mesh_ is mesh and model.device_ == mesh.devices[0]
     assert model.embedding_.device == mesh.devices[0]
     np.testing.assert_allclose(Z, single, atol=1e-5, rtol=0)
@@ -625,9 +621,8 @@ def test_mesh_of_one():
     from sklearn.datasets import make_moons
 
     X, _ = make_moons(n_samples=64, noise=0.05, random_state=0)
-    with one_torch_thread():
-        Z = UMAP(n_neighbors=10, max_iter=50, random_state=0, distributed=True,
-                 mesh=make_mesh(devices=["cpu"]), device="cpu").fit_transform(X.astype(np.float32))
+    Z = UMAP(n_neighbors=10, max_iter=50, random_state=0, distributed=True,
+             mesh=make_mesh(devices=["cpu"]), device="cpu").fit_transform(X.astype(np.float32))
     assert np.isfinite(Z).all()
 
 

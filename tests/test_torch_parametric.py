@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.models.neighbor.largevis import LargeVis as JaxLargeVis
 from torchdr_tpu.models.neighbor.tsne import TSNE as JaxTSNE
 from torchdr_tpu.models.neighbor.umap import UMAP as JaxUMAP
@@ -286,9 +286,8 @@ def test_any_torch_module_serves_from_its_own_weights():
 def test_parametric_umap_quality():
     """tests/test_parametric.py's quality gate: silhouette above 0.15."""
     X, y = _blobs()
-    with one_torch_thread():
-        Z = UMAP(n_neighbors=10, max_iter=300, optimizer="Adam", lr=1e-2, random_state=0,
-                 encoder=make_mlp_encoder(2, (64,)), device="cpu").fit_transform(X)
+    Z = UMAP(n_neighbors=10, max_iter=300, optimizer="Adam", lr=1e-2, random_state=0,
+             encoder=make_mlp_encoder(2, (64,)), device="cpu").fit_transform(X)
     assert silhouette_score(Z, y, device="cpu") > 0.15
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.spectral.phate import PHATE as JaxPHATE
 from torchdr_tpu_torch import PHATE
@@ -113,8 +113,7 @@ def test_moons_quality(toy_moons, t):
     package's fit."""
     X, y = toy_moons
     kw = dict(k=5, t=t, max_iter=300, random_state=0)
-    with one_torch_thread():
-        Z = PHATE(device="cpu", **kw).fit_transform(X)
+    Z = PHATE(device="cpu", **kw).fit_transform(X)
     assert Z.shape == (100, 2) and np.isfinite(Z).all()
     s_port = float(silhouette_score(Z, y))
     assert s_port > 0.15

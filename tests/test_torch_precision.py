@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import torchdr_tpu_torch as tdt
-from _torch_threads import one_torch_thread
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch.ops import kmeans, metrics
 from torchdr_tpu_torch.utils.wrappers import full_float32
 
@@ -90,8 +90,7 @@ ENTRY_POINTS = {
 def test_entry_point_runs_at_full_float32_and_gives_the_user_s_setting_back(
         entry, user_high, products_seen):
     X, y = _rows()
-    with one_torch_thread():  # the suite's other workers hold the cores
-        ENTRY_POINTS[entry](X, y)
+    ENTRY_POINTS[entry](X, y)
     assert products_seen, "no float32 product recorded"
     assert set(products_seen) == {(False, "highest")}
     assert torch.get_float32_matmul_precision() == "high"

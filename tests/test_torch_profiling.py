@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.utils.profiling import PhaseTimer as JaxPhaseTimer
 from torchdr_tpu.utils.visu import plot_poincare_disk as jax_plot_poincare_disk
 from torchdr_tpu_torch import PCA

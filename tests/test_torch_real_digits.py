@@ -29,7 +29,7 @@ import torch
 
 import torchdr_tpu
 import torchdr_tpu_torch
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch.benchmarks import profile_umap_step, real_digits
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -78,8 +78,7 @@ def test_trustworthiness_is_scikit_learn_s(kind, k):
     X, _ = real_digits.load_digits()
     X = X.astype(np.float32)  # as the script gives it
     Z = _embedding(kind, X)
-    with one_torch_thread():
-        got = real_digits.trustworthiness(X, Z, k, device="cpu")
+    got = real_digits.trustworthiness(X, Z, k, device="cpu")
     want = manifold.trustworthiness(X, Z, n_neighbors=k)
     assert abs(got - want) <= 1e-5, (got, want)
     if kind == "identity":
@@ -141,8 +140,7 @@ def test_reference_holds_the_jax_script_s_lines():
 def test_short_run_prints_the_jax_script_s_keys_and_finite_readings(capsys):
     # 400 rows: InfoTSNE's 300 negatives exclude each row's ~90 input
     # neighbours, so it refuses 300 rows, in the JAX package too
-    with one_torch_thread():
-        out = real_digits.main(["--n", "400", "--max-iter", "10", "--device", "cpu"])
+    out = real_digits.main(["--n", "400", "--max-iter", "10", "--device", "cpu"])
     lines = _json_lines(capsys.readouterr().out)
     assert lines[0] == {"step": "dataset", "name": "sklearn_digits", "n": 400, "d": 64,
                         "classes": 10}
@@ -215,17 +213,15 @@ def test_step_part_is_the_jax_script_s_formula(part, jax_parts, step_inputs, mon
         want = np.asarray(want)
     assert want.dtype == np.float64
     port = getattr(profile_umap_step, part)
-    with one_torch_thread():
-        got = {"trivial": lambda: port(Z), "repulsion": lambda: port(Z, None, N_NEG, neg=neg),
-               "attraction": lambda: port(Z, NN, P),
-               "attraction_1pow": lambda: port(Z, NN, P)}.get(part, lambda: port(Z, NN))()
+    got = {"trivial": lambda: port(Z), "repulsion": lambda: port(Z, None, N_NEG, neg=neg),
+           "attraction": lambda: port(Z, NN, P),
+           "attraction_1pow": lambda: port(Z, NN, P)}.get(part, lambda: port(Z, NN))()
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_step_decomposition_prints_its_seven_readings(capsys):
-    with one_torch_thread():
-        out = profile_umap_step.main(["--n", "2000", "--reps", "2", "--device", "cpu"])
+    out = profile_umap_step.main(["--n", "2000", "--reps", "2", "--device", "cpu"])
     lines = capsys.readouterr().out.splitlines()
     labels = ["dispatch overhead", "gather (n,240,2) + sum", "indexed sqdist",
               "attraction full", "attraction 1-pow", "repulsion full", "sqdist+pow only"]
@@ -244,9 +240,8 @@ def test_step_parts_are_main_s_calls_on_given_negatives(step_inputs):
     assert [label for label, _ in parts] == [
         "dispatch overhead", "gather (n,240,2) + sum", "indexed sqdist", "attraction full",
         "attraction 1-pow", "repulsion full", "sqdist+pow only"]
-    with one_torch_thread():
-        got = dict(parts)["repulsion full"]()
-        want = profile_umap_step.repulsion(Z, None, neg=neg)
+    got = dict(parts)["repulsion full"]()
+    want = profile_umap_step.repulsion(Z, None, neg=neg)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 

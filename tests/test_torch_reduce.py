@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops.pallas.reduce_kernel import rowlse_bwd_pallas, rowlse_fwd_pallas
 from torchdr_tpu.ops.reduce import pairwise_logkernel_logsumexp as jax_logsumexp_red
 from torchdr_tpu.ops.reduce import pairwise_logkernel_rowlse as jax_rowlse

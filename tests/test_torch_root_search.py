@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops import root_search as jrs
 from torchdr_tpu_torch.ops import root_search as trs
 

@@ -14,6 +14,8 @@ import inspect
 
 import pytest
 
+from _torch_threads import worker_threads  # noqa: F401
+
 MODULES = ["", ".ops", ".utils", ".parallel", ".eval", ".affinity", ".models",
            ".models.neighbor", ".models.spectral"]
 

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity import NormalizedGaussianAffinity as JaxGaussian
 from torchdr_tpu.affinity import NormalizedStudentAffinity as JaxStudent
 from torchdr_tpu.affinity import SelfTuningAffinity as JaxSelfTuning

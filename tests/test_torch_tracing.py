@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch import IVF, PCA, TSNE, UMAP
 from torchdr_tpu_torch.ops.ivf import ivf_knn
 from torchdr_tpu_torch.parallel import make_mesh
@@ -108,8 +108,7 @@ def test_a_mesh_fit_records_the_mesh_s_spans_and_every_other(knn):
     kind = "umap_ivf" if knn == "ivf" else "umap"
     model = _model(kind)
     model.mesh = make_mesh(devices=["cpu"] * 4)
-    with one_torch_thread():
-        model.fit_transform(_rows())
+    model.fit_transform(_rows())
     added = MESH_KEYS | (MESH_IVF_KEYS if knn == "ivf" else set())
     assert set(model.timings_) == PHASES | API | LOOP | added
     t = model.timings_

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity.entropic import EntropicAffinity as JaxEntropicAffinity
 from torchdr_tpu.affinity.entropic import solve_entropic_affinity as jax_solve
 from torchdr_tpu.eval import silhouette_score

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu_torch import SNE, TSNE
 from torchdr_tpu_torch.ops.attraction import knn_attraction_loss, knn_transpose
 from torchdr_tpu_torch.ops.cuda.attraction_kernel import tsne_attraction, tsne_attraction_plain

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import one_torch_thread, warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.neighbor.tsnekhorn import TSNEkhorn as JaxTSNEkhorn
 from torchdr_tpu.utils.optim import make_optimizer as jax_make_optimizer
@@ -160,8 +160,7 @@ def test_moons_quality(variant, toy_moons):
     X, y = toy_moons
     kw = dict(perplexity=15, max_iter=300 if variant == "default" else 50, lr=1e-1,
               random_state=0, **VARIANTS[variant])
-    with one_torch_thread():
-        Z = TSNEkhorn(device="cpu", **kw).fit_transform(X)
+    Z = TSNEkhorn(device="cpu", **kw).fit_transform(X)
     assert Z.shape == (100, 2) and np.isfinite(Z).all()
     s_port = float(silhouette_score(Z, y))
     assert s_port > 0.15

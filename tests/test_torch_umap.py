@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.affinity.knn_normalized import UMAPAffinity as JaxUMAPAffinity
 from torchdr_tpu.eval import silhouette_score
 from torchdr_tpu.models.neighbor.umap import UMAP as JaxUMAP
@@ -441,6 +441,12 @@ def test_small_fit_on_the_ivf_graph():
     assert Z.shape == (1000, 2) and np.all(np.isfinite(Z))
     assert model.timings_["knn"] > 0
     assert float(knn_label_accuracy(Z, y, k=10)) >= 0.9
+
+
+def test_the_fits_here_run_on_a_single_torch_thread():
+    """The module's CPU fits run on the one torch thread that the fixture of
+    ``tests/_torch_threads.py`` sets for every port test module."""
+    assert torch.get_num_threads() == 1
 
 
 def test_fit_counts_steps_and_times_phases():

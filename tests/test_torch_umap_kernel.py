@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.ops.pallas.umap_kernel import fused_shared_repulsion as jax_k1
 import re
 from pathlib import Path

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_threads import warm_worker_threads  # noqa: F401
+from _torch_threads import worker_threads  # noqa: F401
 from torchdr_tpu.utils import validation as jax_validation
 from torchdr_tpu_torch.utils import validation
 
