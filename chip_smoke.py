@@ -203,10 +203,12 @@ fits phase 4's UMAP and phase 10's parametric UMAP, and runs phase 12. With
 builds K1, K2 and K3 and runs phase 17 alone. With ``--rowhash`` it
 builds the row hash alone and runs phase 18 alone (~1 min). With
 ``--rowlse`` it builds K2 and K3 alone, checks and times the square ones as
-in phase 3 and the general ones, the sharded row log-sum and its step as in
-phase 9, and stops (~1 min): the quick way to compare two versions of the
-row log-sum kernels in one call, this script being copied into the other
-tree's checkout. Each of these prints no result line.
+in phase 3 and on both of their walks (both orders of every pair, or each
+unordered pair once) at n = 1,797, 10,000 and 70,000, and the general ones, the
+sharded row log-sum and its step as in phase 9, and stops (~2 min): the
+quick way to compare two versions of the row log-sum kernels in one call,
+this script being copied into the other tree's checkout. Each of these
+prints no result line.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -237,6 +239,9 @@ TSNEKHORN_MIN_GRAD_NORM = 1e-7
 # separated yet. n/40 reads 0.9993 on the card, n/12 0.9781
 INFOTSNE_LR = N / 40
 N_LARGE = 50_000  # K2/K3 are also timed here: the pair work grows as n squared
+# the square K2 and K3 timed on both walks (``--rowlse``): the digits' size,
+# the t-SNE path's and tsne.mnist70k's
+SQUARE_WALK_SIZES = (1_797, N_TSNE, 70_000)
 # K1 is timed at (n, S, d): the UMAP path's shape, the same in 3-D, a size
 # where the device and not the host bounds a step, the sample of 2048 that
 # the estimator draws at small n, and the IVF path's shape
@@ -595,8 +600,10 @@ def sass_report(libraries) -> None:
         modes = {"rep": ("", ", masked"), "row": (", student", ", gaussian"),
                  "buc": (", k-steps walked", ", one k-step")}[m.group(1)[:3]]
         mode = "" if m.group(3) is None else modes[int(m.group(3))]
-        # the general K2's sharing of the shard's own block
-        shared = ", own block shared" if m.group(4) == "1" else ""
+        # the general K2's sharing of the shard's own block; the square
+        # kernels' symmetric walk
+        shared = "" if m.group(4) != "1" else (
+            ", own block shared" if "shard" in m.group(1) else ", each pair once")
         return f"{m.group(1)}<d={m.group(2)}{mode}{shared}>"
 
     for lib in libraries:
@@ -1332,12 +1339,77 @@ def run_rowlse_kernels(torch, gen) -> None:
     from torchdr_tpu_torch.parallel import make_mesh
 
     check_k2_k3(torch, gen)
+    time_square_walks(torch, gen)
     mesh = make_mesh(devices=["cuda:0"] * MESH_WORLD)
     mesh_gen = torch.Generator(device="cuda")
     mesh_gen.manual_seed(SEED + 1)
     worst = check_general_k2_k3(torch, mesh_gen)
     check_sharded_rowlse(torch, mesh_gen, mesh)
     time_general_k2_k3(torch, mesh_gen, mesh, worst)
+
+
+def time_square_walks(torch, gen) -> list:
+    """The square K2 and K3 at d = 2, student, on each walk: both orders of
+    every pair (the rule's scratch budget ``_SYMMETRIC_SCRATCH_BYTES`` set
+    to 0), or each unordered pair once, the rule's own choice
+    (``rowlse_{fwd,bwd}.symmetric_launches`` count the call), at the
+    digits' size, the smoke's t-SNE size and ``tsne.mnist70k``'s
+    (SQUARE_WALK_SIZES). Each
+    walk is held to the plain versions (TOL_K2, TOL_K3) and timed (CUDA
+    events around eager calls; the pair loop and the merge apart from the
+    profiler) beside ``rowlse_bound_ms``. A tree whose wrapper has no
+    symmetric walk times its own walk alone."""
+    from torchdr_tpu_torch.ops.cuda import reduce_kernel as rk
+
+    dev = torch.device("cuda")
+    d, kernel = 2, "student"
+    walks = ("ordered", "symmetric") if hasattr(rk, "square_grid") else ("ordered",)
+    times = []
+    for n in SQUARE_WALK_SIZES:
+        Z = (5.0 * torch.randn((n, d), generator=gen, device=dev)).contiguous()
+        lse = rk.rowlse_fwd_plain(Z, kernel)
+        g = torch.softmax(lse, 0)
+        dZ_ref = rk.rowlse_bwd_plain(Z, lse, g, kernel)
+        lim2 = TOL_K2 * max(1.0, float(lse.abs().max()))
+        lim3 = TOL_K3 * float(dZ_ref.abs().max())
+        for walk in walks:
+            saved = getattr(rk, "_SYMMETRIC_SCRATCH_BYTES", None)
+            if walk == "ordered" and saved is not None:
+                rk._SYMMETRIC_SCRATCH_BYTES = 0
+            try:
+                before = [getattr(f, "symmetric_launches", 0) for f in (rk.rowlse_fwd, rk.rowlse_bwd)]
+                e2 = float((rk.rowlse_fwd(Z, kernel) - lse).abs().max())
+                e3 = float((rk.rowlse_bwd(Z, lse, g, kernel) - dZ_ref).abs().max())
+                took = [getattr(f, "symmetric_launches", 0) - b
+                        for f, b in zip((rk.rowlse_fwd, rk.rowlse_bwd), before)]
+                if took != ([1, 1] if walk == "symmetric" else [0, 0]):
+                    raise AssertionError(f"square {walk} walk n={n}: symmetric launches {took}")
+                if not (e2 <= lim2 and e3 <= lim3):
+                    raise AssertionError(f"square {walk} walk n={n}: K2 {e2} ({lim2}), K3 {e3} "
+                                         f"({lim3})")
+                for which, fn, err, lim in (
+                    ("K2", lambda: rk.rowlse_fwd(Z, kernel), e2, lim2),
+                    ("K3", lambda: rk.rowlse_bwd(Z, lse, g, kernel), e3, lim3),
+                ):
+                    ms = cuda_time_ms(fn, reps=100 if n <= N_TSNE else 20)
+                    split = kernel_split_ms(torch, fn, calls=10)
+                    bound_ms, bound_by = rowlse_bound_ms(n, d, which, kernel)
+                    print(
+                        f"{which} {walk} walk n={n} d={d} {kernel}: {ms:.4f} ms a call "
+                        f"(by kernel {json.dumps({k: round(v, 5) for k, v in split.items()})}), "
+                        f"bound {bound_ms:.5f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of "
+                        f"it, max|kernel-plain|={err:.3e} (limit {lim:.1e})",
+                        flush=True,
+                    )
+                    times.append({"kernel": which, "walk": walk, "n": n, "d": d, "mode": kernel,
+                                  "ms": ms, "by_kernel_ms": split, "bound_ms": bound_ms,
+                                  "roofline_pct": 100 * bound_ms / ms, "max_abs_err": err})
+            finally:
+                if saved is not None:
+                    rk._SYMMETRIC_SCRATCH_BYTES = saved
+        del dZ_ref
+    print("rowlse_walk_times " + json.dumps(times), flush=True)
+    return times
 
 
 def hold_k2_k3(torch, label, Z, kernel) -> tuple:
@@ -3254,10 +3326,18 @@ def main() -> int:
     umap = run_fit(torch, umap_model, X, labels, counters, expect=("fused_shared_repulsion",))
     k1["launches"] = umap["launches"]["fused_shared_repulsion"]
     X10, labels10 = make_clustered(N_TSNE, D_IN, N_CLUSTERS, seed=SEED)
+    square = (rowlse_fwd, rowlse_bwd)
+    for fn in square:
+        fn.symmetric_launches = 0
     tsne = run_fit(torch, TSNE(random_state=0, device="auto"), X10, labels10, counters,
                    expect=TSNE_KERNELS)
     k2["launches"] = tsne["launches"]["rowlse_fwd"]
     k3["launches"] = tsne["launches"]["rowlse_bwd"]
+    # the student mode's K2 and K3 take the symmetric walk every step
+    k2["symmetric_launches"], k3["symmetric_launches"] = (fn.symmetric_launches for fn in square)
+    if (k2["symmetric_launches"], k3["symmetric_launches"]) != (tsne["steps"],) * 2:
+        raise AssertionError(f"TSNE: symmetric launches {k2['symmetric_launches']}, "
+                             f"{k3['symmetric_launches']} in {tsne['steps']} steps")
     a1["launches"] = tsne["launches"]["tsne_attraction"]
     # SNE's lr="auto" (n/4 = 2,500) diverges on these data, in the JAX
     # package as in the port (|Z| ~1e16 after 30 steps): a hub point whose
@@ -3265,6 +3345,8 @@ def main() -> int:
     # ~7.6, beyond heavy-ball stability (2(1 + 0.8) = 3.6); n/12 is under it
     sne = run_fit(torch, SNE(random_state=0, lr=N_TSNE / 12, device="auto"), X10, labels10,
                   counters, expect=TSNE_KERNELS)
+    if any(fn.symmetric_launches != tsne["steps"] for fn in square):  # gaussian: both orders
+        raise AssertionError("SNE: a gaussian K2 or K3 call took the symmetric walk")
 
     # 5. LargeVis, InfoTSNE and PACMAP on 60k x 784, TSNEkhorn on 10k x 784
     run_ne_path(torch, counters, X, labels)

@@ -35,6 +35,7 @@ from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     rowlse_fwd_general,
     rowlse_fwd_general_plain,
     rowlse_fwd_plain,
+    square_grid,
 )
 from torchdr_tpu_torch.ops.reduce import (
     pairwise_logkernel_rowlse,
@@ -268,6 +269,10 @@ def test_fit_on_the_card_launches_k1_every_step(cuda):
     assert Z.shape == (2000, 2) and np.all(np.isfinite(Z))
 
 
+def _symmetric_counts():
+    return rowlse_fwd.symmetric_launches, rowlse_bwd.symmetric_launches
+
+
 def _hold_k2_k3_to_plain(Z, kernel):
     """K2 (the diagonal excluded and kept) and K3 against their plain
     versions. K2: 1e-5 of max(1, |lse|) (float32 tile sums, an approximate
@@ -349,9 +354,11 @@ def test_rowlse_gradient_on_the_card_matches_plain(cuda, kernel, reduction):
         loss = torch.logsumexp(rows, 0) if reduction == "logsumexp" else rows.mean()
         return torch.autograd.grad(loss, Zt)[0]
 
-    before = (rowlse_fwd.launches, rowlse_bwd.launches)
+    before = (rowlse_fwd.launches, rowlse_bwd.launches, *_symmetric_counts())
     got = grad(torch.from_numpy(Z).to(cuda)).cpu()
-    assert (rowlse_fwd.launches, rowlse_bwd.launches) == (before[0] + 1, before[1] + 1)
+    walk = int(kernel == "student")  # the student mode's gradient on the symmetric walk
+    assert (rowlse_fwd.launches, rowlse_bwd.launches, *_symmetric_counts()) == (
+        before[0] + 1, before[1] + 1, before[2] + walk, before[3] + walk)
     want = grad(torch.from_numpy(Z))
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
@@ -371,9 +378,12 @@ def test_tsne_fit_on_the_card_launches_k2_k3_every_step(cuda):
     centers = rng.normal(scale=8.0, size=(4, 16))
     X = (centers[rng.integers(0, 4, 1500)] + rng.normal(size=(1500, 16))).astype(np.float32)
     rowlse_fwd.launches = rowlse_bwd.launches = tsne_attraction.launches = 0
+    rowlse_fwd.symmetric_launches = rowlse_bwd.symmetric_launches = 0
     model = TSNE(perplexity=20, max_iter=120, random_state=0)
     Z = model.fit_transform(X)
     assert rowlse_fwd.launches == rowlse_bwd.launches == model.n_iter_ == 120
+    # the student mode's symmetric walk, every step
+    assert rowlse_fwd.symmetric_launches == rowlse_bwd.symmetric_launches == 120
     assert tsne_attraction.launches == 120  # A1, the attraction, once a step
     assert Z.shape == (1500, 2) and np.all(np.isfinite(Z))
 
@@ -746,6 +756,70 @@ def test_square_k2_k3_unchanged_beside_the_general_form(cuda, kernel, d):
     assert torch.equal(rowlse_bwd(Z, lse, g, kernel), rowlse_bwd(Z, lse, g, kernel))
     assert (rowlse_fwd_general.launches, rowlse_bwd_general.launches,
             rowlse_bwd_general.kernel_launches) == general
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 8])
+@pytest.mark.parametrize("sms", ["card", "one"])
+def test_square_k2_k3_symmetric_walk_matches_plain(cuda, d, sms, monkeypatch):
+    """The square K2 and K3 on the symmetric walk (each unordered pair once,
+    its value added to its row and its column), the student mode's walk:
+    n = 3,001 (a ragged last row tile, blocks of 32 columns above, below and
+    across the row tiles), in chunks of 32 columns on the card's grid, or
+    of several blocks of 32 (chunks across a row tile, float32 runs flushed
+    within a chunk) on a grid sized for one SM. K2 with the diagonal
+    excluded and kept, and K3, against the plain versions at the square
+    tolerances; one symmetric launch a call; the same bits twice."""
+    if sms == "one":
+        monkeypatch.setattr(reduce_kernel, "sm_count", lambda index: 1)
+    n = 3001
+    for backward in (False, True):
+        grid = square_grid(n, reduce_kernel.sm_count(cuda.index or 0), d, "student", backward)
+        assert grid[0] and (sms == "card" or grid[2] > reduce_kernel._LANES)
+    rng = np.random.default_rng(80 + d)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(n, d))).astype(np.float32)).to(cuda)
+    before = (*_symmetric_counts(), rowlse_fwd.launches, rowlse_bwd.launches)
+    _hold_k2_k3_to_plain(Z, "student")
+    assert (*_symmetric_counts(), rowlse_fwd.launches, rowlse_bwd.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 2, before[3] + 1)
+    for exclude_diag in (True, False):
+        assert torch.equal(rowlse_fwd(Z, "student", exclude_diag),
+                           rowlse_fwd(Z, "student", exclude_diag))
+    lse = rowlse_fwd_plain(Z, "student")
+    g = torch.softmax(lse, 0)
+    assert torch.equal(rowlse_bwd(Z, lse, g, "student"), rowlse_bwd(Z, lse, g, "student"))
+
+
+@pytest.mark.cuda
+def test_square_k2_k3_symmetric_walk_at_20000_with_duplicate_rows(cuda):
+    """At n = 20,000, d = 2, the card's grid (chunks of several 32-column
+    blocks across tiles and chunks), with duplicate rows (d² = 0 off the
+    diagonal): K2 and K3 on the symmetric walk against the plain versions
+    at the square tolerances."""
+    rng = np.random.default_rng(17)
+    base = (4.0 * rng.normal(size=(19_000, 2))).astype(np.float32)
+    Z = torch.from_numpy(np.concatenate([base, base[:1_000]])).to(cuda)
+    assert square_grid(20_000, sm_count(cuda.index or 0), 2, "student")[0]
+    before = _symmetric_counts()
+    _hold_k2_k3_to_plain(Z, "student")
+    assert _symmetric_counts() == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["student", "gaussian"])
+def test_square_k2_k3_keep_both_orders_past_the_budget_and_for_gaussian(cuda, kernel,
+                                                                         monkeypatch):
+    """The ordered walk, and the symmetric counters still: the gaussian
+    mode, and the student mode where the symmetric walk's scratch would
+    pass its budget (set to 0 here)."""
+    if kernel == "student":
+        monkeypatch.setattr(reduce_kernel, "_SYMMETRIC_SCRATCH_BYTES", 0)
+    rng = np.random.default_rng(23)
+    Z = torch.from_numpy((3.0 * rng.normal(size=(3001, 2))).astype(np.float32)).to(cuda)
+    before = _symmetric_counts()
+    assert not square_grid(3001, sm_count(cuda.index or 0), 2, kernel)[0]
+    _hold_k2_k3_to_plain(Z, kernel)
+    assert _symmetric_counts() == before
 
 
 @pytest.mark.cuda

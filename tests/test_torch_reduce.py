@@ -37,6 +37,7 @@ from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     _BLOCKS_PER_SM as BLOCKS_PER_SM,
     _LANES as LANES,
     _STAGED_BYTES as STAGED_BYTES,
+    _SYMMETRIC_SCRATCH_BYTES as SYMMETRIC_SCRATCH_BYTES,
     _THREADS as THREADS,
     column_bytes,
     column_chunks,
@@ -47,7 +48,9 @@ from torchdr_tpu_torch.ops.cuda.reduce_kernel import (
     rowlse_bwd_plain,
     rowlse_fwd,
     rowlse_fwd_plain,
+    square_grid,
     staged_bytes,
+    symmetric_column_bytes,
 )
 from torchdr_tpu_torch.ops.reduce import (
     pairwise_logkernel_logsumexp,
@@ -353,6 +356,84 @@ def test_general_k3_constants_are_the_sources():
     assert const["kMaxStaged"] == "227 * 1024 / kBlocksPerSM - 1024"
     assert STAGED_BYTES == 227 * 1024 // BLOCKS_PER_SM - 1024
     assert "static constexpr int kColFloats = 2 * kRec + kWarps * D;" in src
+
+
+@pytest.mark.parametrize("n, d, kernel, symmetric", [
+    (70_000, 2, "student", (True, True)),    # tsne.mnist70k: 1,152- and 576-column chunks
+    (50_000, 2, "student", (True, True)),
+    (16_000, 2, "student", (True, True)),
+    (10_000, 2, "student", (True, True)),    # the smoke's t-SNE size
+    (3_001, 2, "student", (True, True)),
+    (1_797, 2, "student", (True, True)),     # the digits: chunks of one block of 32
+    (1, 2, "student", (True, True)),
+    (70_000, 2, "gaussian", (False, False)),  # a gaussian term is relative to its row's shift
+    (10_000, 2, "gaussian", (False, False)),
+    (1_797, 2, "gaussian", (False, False)),
+    (70_000, 3, "student", (True, True)),
+    (70_000, 8, "student", (True, False)),   # K3's scratch past its budget at d = 8
+    (200_000, 2, "student", (True, False)),  # ... at d = 2 past n of 134,756
+    (1_300_000, 2, "student", (False, False)),
+])
+def test_square_rule_takes_the_symmetric_walk_for_student(n, d, kernel, symmetric):
+    """The square K2's and K3's rule (:func:`square_grid`) on 132 SMs: the
+    symmetric walk for the student kernel while its scratch stays within
+    ``_SYMMETRIC_SCRATCH_BYTES``, in three waves of chunks of whole blocks
+    of 32 columns that cover the columns once, within the staging budget
+    of six blocks resident per SM; otherwise :func:`column_chunks`' grid,
+    and its scratch, unchanged. ``symmetric`` is K2's and K3's."""
+    for backward, want in zip((False, True), symmetric):
+        got, n_chunks, chunk, tiles, scratch = square_grid(n, 132, d, kernel, backward)
+        assert got == want and tiles == -(-n // rows_per_block(d))
+        assert (n_chunks - 1) * chunk < n <= n_chunks * chunk
+        width = d if backward else 1
+        if not want:
+            assert (n_chunks, chunk) == column_chunks(n, 132, d, backward)
+            sums = 2 if kernel == "gaussian" and not backward else 1
+            assert scratch == sums * n_chunks * n * width
+            continue
+        assert chunk % LANES == 0
+        assert scratch == (n_chunks + tiles) * n * width
+        assert 8 * scratch <= SYMMETRIC_SCRATCH_BYTES
+        assert BLOCKS_PER_SM * (chunk * symmetric_column_bytes(d, backward) + 1024) <= 227 * 1024
+        assert tiles * n_chunks >= min(-(-n // LANES) * tiles, 2 * 132 * BLOCKS_PER_SM)
+    assert square_grid(70_000, 132, 2, "student") == (True, 61, 1_152, 137, 13_860_000)
+    assert square_grid(70_000, 132, 2, "student", True) == (True, 122, 576, 137, 36_260_000)
+
+
+@pytest.mark.parametrize("d, backward, last", [
+    (2, False, 217_885), (2, True, 134_756), (3, False, 202_752), (3, True, 103_323),
+    (8, False, 147_816), (8, True, 40_622),
+])
+def test_square_symmetric_scratch_stays_within_its_budget(d, backward, last):
+    """The symmetric walk's row tiles' column sums grow as n²/512, so the
+    rule keeps it to ``_SYMMETRIC_SCRATCH_BYTES`` (1 GiB): ``last`` is the
+    largest n that takes it on 132 SMs, and every n past it keeps both
+    orders, on the ordered grid and scratch, up to the 1.3M rows of the
+    cells1p3m data, where K3 holds 11.5 GB of scratch (and the symmetric
+    walk would hold 99.8 GB)."""
+    width = d if backward else 1
+    for n in (last - 1, last, last + 1, 2 * last, 1_300_000):
+        got, n_chunks, chunk, tiles, scratch = square_grid(n, 132, d, "student", backward)
+        assert got == (n <= last)
+        if got:
+            assert 8 * scratch <= SYMMETRIC_SCRATCH_BYTES
+        else:
+            assert (n_chunks, chunk) == column_chunks(n, 132, d, backward)
+            assert scratch == n_chunks * n * width
+    if (d, backward) == (2, True):
+        assert square_grid(1_300_000, 132, 2, "student", True)[4] * 8 == 11_481_600_000
+
+
+def test_square_symmetric_scratch_at_70000_stays_small():
+    """The symmetric walk's scratch at tsne.mnist70k's shape (70,000 x 2,
+    132 SMs), K2's and K3's together: 0.111 GB and 0.290 GB of doubles,
+    under a cap of 512 MiB, so that the loop's peak stays under the exact
+    kNN's (1.51 GiB of a fit), which sets the cell's ``peak_gib``. Its
+    merge reads the slots of the live blocks alone, about half of each."""
+    k2 = square_grid(70_000, 132, 2, "student")[4] * 8
+    k3 = square_grid(70_000, 132, 2, "student", backward=True)[4] * 8
+    assert (k2, k3) == (110_880_000, 290_080_000)
+    assert k2 + k3 <= 512 * 2**20
 
 
 def test_wrappers_check_their_inputs():

@@ -35,6 +35,8 @@
 // ordered pair (student: the reciprocal) or two (gaussian: the two
 // weights). At 16 results per clock per SM, 132 SMs and 1.98 GHz, 1.0e8
 // ordered pairs take 24 us (48 us gaussian): the floor of this design.
+// Where the wrapper's rule takes it (below), the student mode evaluates
+// each unordered pair once instead.
 //
 // What the design does about it, as rowlse_fwd.cu:
 //
@@ -115,6 +117,30 @@
 // - The square form keeps its own kernel above: sharing its loop with the
 //   general form slowed it by 4.5 to 8.6 % (PERF.md section 6).
 //
+// The square form's symmetric walk (student, kSym of
+// rowlse_bwd_partial_kernel and rowlse_bwd_merge_kernel), which the
+// wrapper's rule (reduce_kernel.square_grid) takes for the student kernel
+// while its scratch stays within 1 GiB (n up to 134,756 at d = 2 on 132
+// SMs), in three waves of chunks of 32-column blocks. The student
+// coefficient is symmetric, (u_i + u_j) q_ij^2, so the term
+// f = (u_i + u_j) q^2 (z_i - z_j) of each
+// unordered pair (i, j), i < j, is evaluated once, added to row i's
+// register sums and subtracted from column j's running sum, which the
+// general form's walk passes from lane to lane (symmetric_block). A staged
+// record holds z_j and u_j (one LDS.128 at d = 2), each block of 32 twice.
+// 12.75 instructions a pair at d = 2 (the general form's 11.75 and the add
+// u_i + u_j), where both orders cost 21. Blocks of 32 columns wholly below
+// the row tile are skipped, and a grid block whose chunk lies wholly below
+// its row tile returns at once and writes nothing; the rest take the
+// masked step where they meet the tile's rows or are ragged. The merge adds
+// an entry's row sums over the chunks that reach its tile, then its column
+// sums over the row tiles that reach its chunk, in that order: no atomics,
+// the same bits every call. Staging: 64 bytes a column at d = 2 (chunks of
+// 576). Scratch: (n_chunks + row tiles, n, d) doubles, 0.290 GB at
+// n = 70,000 (122 chunks, 137 row tiles), of which the merge reads the
+// live half: 0.059 ms of the call's 1.27 ms, against 1.84 ms for both
+// orders (an H100 80GB HBM3 at 700 W, PERF.md section 6).
+//
 // Accumulation as in rowlse_fwd.cu: each staged tile of at most kTile = 256
 // columns is summed in float32 and added to double accumulators. The terms
 // of a force have both signs and partly cancel, so the error is relative to
@@ -134,6 +160,10 @@ constexpr size_t kMaxStaged = 227 * 1024 / kBlocksPerSM - 1024;
 constexpr int kUnroll = 8;  // staged columns per step of the inner loop
 constexpr int kTile = 256;  // longest float32 run of one accumulator
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kLanes = 32;
+constexpr int kWarps = kThreads / kLanes;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMergeThreads = 256;
 
 template <int D>
 struct Shape {
@@ -157,6 +187,27 @@ __device__ __forceinline__ float ex2_approx(float x) {
 
 // Student: u_i = -g_i e^(-lse_i).
 __device__ __forceinline__ float student_weight(float g, float lse) { return -g * expf(-lse); }
+
+// One staged column into registers, by the widest aligned loads.
+template <int P>
+__device__ __forceinline__ void load_record(const float* rec, float (&v)[P]) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < P / 4; ++k) {
+      const float4 t = reinterpret_cast<const float4*>(rec)[k];
+      v[4 * k] = t.x;
+      v[4 * k + 1] = t.y;
+      v[4 * k + 2] = t.z;
+      v[4 * k + 3] = t.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(rec);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = rec[0];
+  }
+}
 
 // G staged columns, starting at cols (global column j), against the
 // thread's R rows; wi is u_i (student) or g_i (gaussian), li is lse_i. The
@@ -246,11 +297,13 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
 }
 
+// The square form, both orders of every pair: row tile blockIdx.x against
+// column chunk blockIdx.y, each row's chunk sum into part (chunk, row, d).
 template <int D, bool kGaussian>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__ lse,
-                          const float* __restrict__ g, double* __restrict__ part, int n,
-                          int chunk) {
+__device__ __forceinline__ void ordered_chunk(const float* __restrict__ Z,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ g,
+                                              double* __restrict__ part, int n, int chunk) {
   constexpr int R = Shape<D>::kRows;
   constexpr int P = Shape<D>::kRec;
   extern __shared__ float4 staged[];
@@ -304,42 +357,233 @@ rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__
   }
 }
 
-// dZ[e] = 2 * sum_k part[k][e] over the n * d entries e.
+// The square form's symmetric walk (student): a staged column's record,
+// z_j then u_j, padded to an aligned vector, and the shared floats a column
+// takes: its record twice and each warp's column sum.
+template <int D>
+struct Sym {
+  static constexpr int kRec = D + 1 <= 2 ? 2 : (D + 1 + 3) / 4 * 4;
+  static constexpr int kColFloats = 2 * kRec + kWarps * D;
+};
+
+// A block of 32 staged columns (global ids j0 + k, those of k >= live
+// padding) against the thread's R rows in 32 steps, as column_block below
+// walks them: at step t the lane takes column k = (lane + t) mod 32 and
+// holds its running sum, passed one lane down after the step. The pair's
+// term f = (u_i + u_j) q^2 (z_i - z_j) is added to the row's sums and to the
+// column's, which stands for -f. kMask: a pair counts only where its column
+// is live and lies above its row (j > i; the j == i term is zero, its
+// coefficient need not be finite).
+template <int D, bool kMask>
+__device__ __forceinline__ void symmetric_block(const float* zb, int j0, int live, int lane,
+                                                const float (&zi)[Shape<D>::kRows][D],
+                                                const float (&wi)[Shape<D>::kRows],
+                                                const int (&row)[Shape<D>::kRows],
+                                                float (&a)[Shape<D>::kRows][D], float (&ca)[D]) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Sym<D>::kRec;
+  const int from = (lane + 1) & (kLanes - 1);
+#pragma unroll
+  for (int c = 0; c < D; ++c) ca[c] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kLanes; ++t) {
+    float zj[P];
+    load_record<P>(zb + t * P, zj);
+    const int k = (lane + t) & (kLanes - 1);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float diff[D];
+      float s = 1.0f;  // 1 + d^2
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        diff[c] = zi[r][c] - zj[c];
+        s = fmaf(diff[c], diff[c], s);
+      }
+      const float q = rcp_approx(s);
+      float coef = (wi[r] + zj[D]) * (q * q);
+      if (kMask) coef = (k < live && j0 + k > row[r]) ? coef : 0.0f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        a[r][c] = fmaf(coef, diff[c], a[r][c]);
+        ca[c] = fmaf(coef, diff[c], ca[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) ca[c] = __shfl_sync(kFullMask, ca[c], from);
+  }
+}
+
+// The square form's symmetric walk (student): each unordered pair (i, j),
+// i < j, once, its term added to row i and subtracted from column j. The
+// chunk is staged as blocks of 32 records, each twice; a block of 32
+// columns wholly below the row tile is skipped (the transposed block counts
+// its pairs), as is the whole chunk where every column lies below every row:
+// such a block writes nothing, and the merge reads none of its slots. Row
+// sums go to part (chunk, row, d), column sums, added over the warps in
+// order, to part_col (row tile, column, d).
+template <int D>
+__device__ __forceinline__ void symmetric_chunk(const float* __restrict__ Z,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ g,
+                                                double* __restrict__ part,
+                                                double* __restrict__ part_col, int n, int chunk) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Sym<D>::kRec;
+  const int r0 = blockIdx.x * (R * kThreads);
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(n, c0 + chunk);
+  if (c1 <= r0) return;
+  extern __shared__ float4 staged[];
+  const int len = c1 - c0;
+  const int n_blk = (len + kLanes - 1) / kLanes;
+  float* zs = reinterpret_cast<float*>(staged);  // record e of block b: column 32 b + e mod 32
+  float* cs = zs + n_blk * 2 * kLanes * P;       // [warp][column][coordinate] sums
+  for (int e = threadIdx.x; e < n_blk * 2 * kLanes; e += kThreads) {
+    const int col = (e / (2 * kLanes)) * kLanes + (e & (kLanes - 1));
+    const bool in = col < len;
+    const size_t j = static_cast<size_t>(c0 + col);
+#pragma unroll
+    for (int c = 0; c < P; ++c)
+      zs[e * P + c] = !in ? 0.0f : c < D ? Z[j * D + c] : c == D ? student_weight(g[j], lse[j]) : 0.0f;
+  }
+
+  int row[R];  // the ragged last row tile: rows >= n take no pair and are not written
+  float zi[R][D], wi[R], a[R][D];
+  double acc[R][D];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = r0 + r * kThreads + threadIdx.x;
+    const bool live = row[r] < n;
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      zi[r][c] = live ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+      a[r][c] = 0.0f;
+      acc[r][c] = 0.0;
+    }
+    wi[r] = live ? student_weight(g[row[r]], lse[row[r]]) : 0.0f;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & (kLanes - 1);
+  float* own = cs + (threadIdx.x / kLanes) * (n_blk * kLanes * D);
+  for (int b = 0; b < n_blk; ++b) {
+    const int j0 = c0 + b * kLanes;
+    const int live = len - b * kLanes;
+    const float* zb = zs + (b * 2 * kLanes + lane) * P;
+    float ca[D];
+    if (live >= kLanes && j0 > r0 + R * kThreads - 1) {
+      symmetric_block<D, false>(zb, j0, live, lane, zi, wi, row, a, ca);
+    } else if (j0 + kLanes - 1 >= r0) {
+      symmetric_block<D, true>(zb, j0, live, lane, zi, wi, row, a, ca);
+    } else {
+#pragma unroll
+      for (int c = 0; c < D; ++c) ca[c] = 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) own[(b * kLanes + lane) * D + c] = ca[c];
+    if ((b + 1) % (kTile / kLanes) == 0 || b + 1 == n_blk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          acc[r][c] += static_cast<double>(a[r][c]);
+          a[r][c] = 0.0f;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (row[r] < n) {
+      const size_t at = (static_cast<size_t>(blockIdx.y) * n + row[r]) * D;
+#pragma unroll
+      for (int c = 0; c < D; ++c) part[at + c] = acc[r][c];
+    }
+  }
+  __syncthreads();
+  double* out = part_col + (static_cast<size_t>(blockIdx.x) * n + c0) * D;
+  for (int e = threadIdx.x; e < len * D; e += kThreads) {
+    double sum = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += static_cast<double>(cs[w * (n_blk * kLanes * D) + e]);
+    out[e] = -sum;
+  }
+}
+
+// The square form's pair loop: both orders of every pair, or (kSym, student
+// only) each unordered pair once, its column sums into part_col.
+template <int D, bool kGaussian, bool kSym>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rowlse_bwd_partial_kernel(const float* __restrict__ Z, const float* __restrict__ lse,
+                          const float* __restrict__ g, double* __restrict__ part,
+                          double* __restrict__ part_col, int n, int chunk) {
+  static_assert(!(kSym && kGaussian), "the symmetric walk is the student mode's");
+  if constexpr (kSym)
+    symmetric_chunk<D>(Z, lse, g, part, part_col, n, chunk);
+  else
+    ordered_chunk<D, kGaussian>(Z, lse, g, part, n, chunk);
+}
+
+// dZ[e] = 2 * sum_k part[k][e] over the n * d entries e. kSym: the partials
+// of the chunks that reach row e / d's tile (of `rows` rows), then the column
+// sums of the row tiles that reach its chunk, in order: the slots the pair
+// loop wrote, and no other.
+template <bool kSym>
 __global__ void rowlse_bwd_merge_kernel(const double* __restrict__ part,
-                                        float* __restrict__ out, int nd, int n_chunks) {
+                                        const double* __restrict__ part_col,
+                                        float* __restrict__ out, int n, int d, int n_chunks,
+                                        int chunk, int rows) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nd = n * d;
   if (e >= nd) return;
+  const int i = e / d;
   double s = 0.0;
-  for (int k = 0; k < n_chunks; ++k) s += part[static_cast<size_t>(k) * nd + e];
+  const int k0 = kSym ? i / rows * rows / chunk : 0;
+#pragma unroll 4
+  for (int k = k0; k < n_chunks; ++k) s += part[static_cast<size_t>(k) * nd + e];
+  if (kSym) {
+    const int tiles = (min(n, (i / chunk + 1) * chunk) - 1) / rows + 1;
+#pragma unroll 4
+    for (int t = 0; t < tiles; ++t) s += part_col[static_cast<size_t>(t) * nd + e];
+  }
   out[e] = static_cast<float>(2.0 * s);
 }
 
 template <int D>
 int launch(const float* Z, const float* lse, const float* g, float* out, double* part, int n,
-           int n_chunks, int chunk, bool gaussian, cudaStream_t stream) {
-  const size_t staged_bytes = static_cast<size_t>(chunk) * Shape<D>::kRec * sizeof(float);
+           int n_chunks, int chunk, bool gaussian, bool symmetric, cudaStream_t stream) {
+  if (symmetric && (gaussian || chunk % kLanes != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t staged_bytes =
+      static_cast<size_t>(chunk) * (symmetric ? Sym<D>::kColFloats : Shape<D>::kRec) * sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
   const dim3 grid((n + rows - 1) / rows, n_chunks);
+  // symmetric: the chunks' row sums, then the row tiles' column sums
+  double* part_col = symmetric ? part + static_cast<size_t>(n_chunks) * n * D : nullptr;
   if (gaussian) {
-    rowlse_bwd_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, lse, g, part, n, chunk);
+    rowlse_bwd_partial_kernel<D, true, false><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, lse, g, part, nullptr, n, chunk);
+  } else if (symmetric) {
+    rowlse_bwd_partial_kernel<D, false, true><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, lse, g, part, part_col, n, chunk);
   } else {
-    rowlse_bwd_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
-        Z, lse, g, part, n, chunk);
+    rowlse_bwd_partial_kernel<D, false, false><<<grid, kThreads, staged_bytes, stream>>>(
+        Z, lse, g, part, nullptr, n, chunk);
   }
-  const int nd = n * D;
-  rowlse_bwd_merge_kernel<<<(nd + 255) / 256, 256, 0, stream>>>(part, out, nd, n_chunks);
+  const int merge_blocks = (n * D + 255) / 256;
+  if (symmetric)
+    rowlse_bwd_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_col, out, n, D,
+                                                                     n_chunks, chunk, rows);
+  else
+    rowlse_bwd_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, nullptr, out, n, D,
+                                                                      n_chunks, chunk, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 
 // ---- The general form: one evaluation per pair (rowlse_bwd_general) ----
 
-constexpr int kLanes = 32;
-constexpr int kWarps = kThreads / kLanes;
-constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kMergeThreads = 256;
 
 template <int D>
 struct General {
@@ -349,27 +593,6 @@ struct General {
   // shared floats a column takes: z_j twice and each warp's column sum
   static constexpr int kColFloats = 2 * kRec + kWarps * D;
 };
-
-// One staged column into registers, by the widest aligned loads.
-template <int P>
-__device__ __forceinline__ void load_record(const float* rec, float (&v)[P]) {
-  if constexpr (P % 4 == 0) {
-#pragma unroll
-    for (int k = 0; k < P / 4; ++k) {
-      const float4 t = reinterpret_cast<const float4*>(rec)[k];
-      v[4 * k] = t.x;
-      v[4 * k + 1] = t.y;
-      v[4 * k + 2] = t.z;
-      v[4 * k + 3] = t.w;
-    }
-  } else if constexpr (P == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(rec);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-    v[0] = rec[0];
-  }
-}
 
 // A block of 32 staged columns (global ids j0 + k; those of k >= live are
 // padding) against the thread's R rows, in 32 steps: at step t the lane
@@ -598,11 +821,13 @@ int general(const float* Zq, const float* Zdb, const float* lse, const float* g,
 // C interface, loaded with ctypes. Z (n, d), lse (n,), g (n,) and out (n, d)
 // are contiguous float32 on the device; part (n_chunks, n, d) float64 is
 // scratch. Column chunk k covers columns [k * chunk, min(n, (k + 1) *
-// chunk)), and a chunk's staged columns must fit kMaxStaged bytes. Returns the first
-// CUDA error (0 on success).
+// chunk)), and a chunk's staged columns must fit kMaxStaged bytes. symmetric
+// (student only, chunk a multiple of 32): each unordered pair once, part
+// then (n_chunks + row tiles, n, d), the chunks' row sums and the row
+// tiles' column sums. Returns the first CUDA error (0 on success).
 extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* out,
                           void* part, int n, int d, int n_chunks, int chunk,
-                          int gaussian, void* stream) {
+                          int gaussian, int symmetric, void* stream) {
   if (n <= 0) return 0;
   if (n_chunks <= 0 || chunk <= 0 || static_cast<long long>(n_chunks) * chunk < n)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -611,17 +836,17 @@ extern "C" int rowlse_bwd(const void* Z, const void* lse, const void* g, void* o
   const auto* gp = static_cast<const float*>(g);
   auto* o = static_cast<float*>(out);
   auto* p = static_cast<double*>(part);
-  const bool gs = gaussian != 0;
+  const bool gs = gaussian != 0, sy = symmetric != 0;
   auto st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 2: return launch<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 3: return launch<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 4: return launch<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 5: return launch<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 6: return launch<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 7: return launch<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
-    case 8: return launch<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, st);
+    case 1: return launch<1>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 2: return launch<2>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 3: return launch<3>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 4: return launch<4>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 5: return launch<5>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 6: return launch<6>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 7: return launch<7>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
+    case 8: return launch<8>(z, l, gp, o, p, n, n_chunks, chunk, gs, sy, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -51,6 +51,26 @@
 //   value is relative to its row's shift, so a column would need one more
 //   exp2.
 //
+// The square form's symmetric walk (student, kSym of rowlse_partial_kernel
+// and rowlse_merge_kernel), which the wrapper's rule
+// (reduce_kernel.square_grid) takes for the student kernel while its
+// scratch stays within 1 GiB (n up to 217,885 at d = 2 on 132 SMs), in
+// three waves of chunks of 32-column blocks: the square form
+// is its own shard, so every chunk is walked as own_block walks the shard's
+// own block, each unordered pair (i, j), i < j, once, its value added to
+// row i in registers and to column j through the running column sums. A
+// block of 32 columns wholly below the row tile is skipped, and a grid
+// block whose chunk lies wholly below its row tile returns at once and
+// writes nothing; the merge adds row i's sums over the chunks that reach
+// its tile, then its column sums over the row tiles that reach its chunk,
+// in that order, so a call repeats bit for bit. Staging: each block of 32
+// columns twice and the warps' column sums, 32 bytes a column at d = 2
+// (chunks of 1,152). Scratch: (n_chunks + row tiles) x n doubles, 0.111 GB
+// at n = 70,000 (61 chunks, 137 row tiles), of which the merge reads the
+// live half. 1.7x fewer instructions a pair than both orders (7.5 against
+// 12.8); at n = 70,000 the call took 0.76 ms against 1.10 (an H100 80GB
+// HBM3 at 700 W, PERF.md section 6).
+//
 // Bound. The kernel reads Z (n d floats) and writes n floats: 0.12 MB at
 // n = 10,000, d = 2, a few hundredths of a microsecond of memory time. The
 // kernel value is symmetric in (i, j), so the least work evaluates each of
@@ -62,7 +82,8 @@
 // pairs at 132 SMs and 1.98 GHz, and that, not the 6.7 us, is the floor of
 // such a design. The student mode here makes one call per two pairs (12 us)
 // and is bound by instruction issue instead: 6.4 instructions per pair at
-// d = 2, four warp instructions per clock per SM.
+// d = 2, four warp instructions per clock per SM. The symmetric walk (above)
+// evaluates each unordered pair once, in 7.5 instructions at d = 2.
 //
 // What the design does about it: it spends as few issue slots and
 // special-function calls per pair as it can.
@@ -110,10 +131,13 @@
 //   (64 registers, which spill at d = 3) the kernels ran 2 to 8 % slower,
 //   sized for 4 up to 20 % slower. A second small kernel merges each
 //   row's chunk partials (n_chunks x n doubles of scratch; no n x n array
-//   exists anywhere). Each unordered pair once (tile pairs I <= J, row sums
-//   in registers, column sums in per-warp shared memory) was tried and
-//   dropped: 17 % faster at n = 50,000 but twice as slow at n = 10,000,
-//   where 512-row tiles leave 210 blocks for 132 SMs.
+//   exists anywhere). An earlier design of each unordered pair once (tile
+//   pairs I <= J, row sums in registers, column sums in per-warp shared
+//   memory, no lane rotation) was dropped: 17 % faster at n = 50,000 but
+//   twice as slow at n = 10,000, where 512-row tiles leave 210 blocks for
+//   132 SMs. The symmetric walk above is another design, with the general
+//   form's lane-rotated column sums, in a grid of three waves of chunks of
+//   32-column blocks, and faster at 10,000 too (PERF.md section 6).
 //
 // Tensor cores and TMA are not the tools here. The contraction depth of the
 // gram is d <= 8, wgmma/mma on float32 inputs means TF32 (10-bit mantissa),
@@ -357,58 +381,6 @@ __device__ __forceinline__ void pair_tile(const float* cols, int j0, int len,
   }
 }
 
-template <int D, bool kGaussian>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
-                      double* __restrict__ part_c, int n, int chunk, int exclude_diag) {
-  constexpr int R = Shape<D>::kRows;
-  constexpr int P = Shape<D>::kRec;
-  extern __shared__ float4 staged[];
-  float* cols = reinterpret_cast<float*>(staged);
-
-  const int r0 = blockIdx.x * (R * kThreads);
-  const int c0 = blockIdx.y * chunk;
-  const int c1 = min(n, c0 + chunk);
-  for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
-#pragma unroll
-    for (int c = 0; c < D; ++c) cols[t * P + c] = Z[static_cast<size_t>(c0 + t) * D + c];
-  }
-
-  int row[R];  // the ragged last row tile: rows >= n are computed and not written
-  float zi[R][D];
-  RowState<R> st;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    row[r] = r0 + r * kThreads + threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < D; ++c) zi[r][c] = row[r] < n ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
-    st.s[r] = 0.0f;
-    st.S[r] = 0.0;
-    st.shift[r] = kNoTerm * kLog2e;
-    st.move_below[r] = kNoTerm;
-  }
-  __syncthreads();
-
-  for (int j0 = c0; j0 < c1; j0 += kTile) {
-    const int len = min(kTile, c1 - j0);
-    const float* tile = cols + (j0 - c0) * P;
-    // only a tile whose columns meet the block's rows can hold a diagonal term
-    if (exclude_diag && j0 < r0 + R * kThreads && r0 < j0 + len)
-      pair_tile<D, kGaussian, true>(tile, j0, len, zi, row, st);
-    else
-      pair_tile<D, kGaussian, false>(tile, j0, len, zi, row, st);
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (row[r] < n) {
-      const size_t at = static_cast<size_t>(blockIdx.y) * n + row[r];
-      part_s[at] = st.S[r];
-      if (kGaussian) part_c[at] = static_cast<double>(st.shift[r]);
-    }
-  }
-}
-
 // The shard's own columns, each unordered pair once (student, kShared): a
 // block of 32 own columns (local ids jl0 + k, k < live) against the
 // thread's R rows (local ids rl), in 32 steps as rowlse_bwd.cu's general
@@ -463,6 +435,154 @@ __device__ __forceinline__ float own_block(const float* zb, int jl0, int live, i
     ca = __shfl_sync(kFullMask, ca, from);
   }
   return ca;
+}
+
+// The square form, both orders of every pair: row tile blockIdx.x against
+// column chunk blockIdx.y, each row's chunk sum (and gaussian shift) into
+// part_s (part_c).
+template <int D, bool kGaussian>
+__device__ __forceinline__ void ordered_chunk(const float* __restrict__ Z, double* __restrict__ part_s,
+                                              double* __restrict__ part_c, int n, int chunk,
+                                              int exclude_diag) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  extern __shared__ float4 staged[];
+  float* cols = reinterpret_cast<float*>(staged);
+
+  const int r0 = blockIdx.x * (R * kThreads);
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(n, c0 + chunk);
+  for (int t = threadIdx.x; t < c1 - c0; t += kThreads) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) cols[t * P + c] = Z[static_cast<size_t>(c0 + t) * D + c];
+  }
+
+  int row[R];  // the ragged last row tile: rows >= n are computed and not written
+  float zi[R][D];
+  RowState<R> st;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = r0 + r * kThreads + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < D; ++c) zi[r][c] = row[r] < n ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+    st.s[r] = 0.0f;
+    st.S[r] = 0.0;
+    st.shift[r] = kNoTerm * kLog2e;
+    st.move_below[r] = kNoTerm;
+  }
+  __syncthreads();
+
+  for (int j0 = c0; j0 < c1; j0 += kTile) {
+    const int len = min(kTile, c1 - j0);
+    const float* tile = cols + (j0 - c0) * P;
+    // only a tile whose columns meet the block's rows can hold a diagonal term
+    if (exclude_diag && j0 < r0 + R * kThreads && r0 < j0 + len)
+      pair_tile<D, kGaussian, true>(tile, j0, len, zi, row, st);
+    else
+      pair_tile<D, kGaussian, false>(tile, j0, len, zi, row, st);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (row[r] < n) {
+      const size_t at = static_cast<size_t>(blockIdx.y) * n + row[r];
+      part_s[at] = st.S[r];
+      if (kGaussian) part_c[at] = static_cast<double>(st.shift[r]);
+    }
+  }
+}
+
+// The square form's symmetric walk (student, kSym): each unordered pair
+// (i, j), i < j, once. The chunk is staged as blocks of 32 columns, each
+// twice (own_block's records), and walked as the general form walks the
+// shard's own block: the pair's value goes to row i in registers and to
+// column j through the lane-rotated running column sums. A block of 32
+// columns wholly below the row tile is skipped (its pairs are counted by the
+// transposed block), as is the whole chunk where every column lies below
+// every row: such a block writes nothing, and the merge reads none of its
+// slots. Row sums go to part_s (chunk, row), column sums, added over the
+// warps in order, to part_col (row tile, column).
+template <int D>
+__device__ __forceinline__ void symmetric_chunk(const float* __restrict__ Z,
+                                                double* __restrict__ part_s,
+                                                double* __restrict__ part_col, int n, int chunk,
+                                                int exclude_diag) {
+  constexpr int R = Shape<D>::kRows;
+  constexpr int P = Shape<D>::kRec;
+  const int r0 = blockIdx.x * (R * kThreads);
+  const int c0 = blockIdx.y * chunk;
+  const int c1 = min(n, c0 + chunk);
+  if (c1 <= r0) return;
+  extern __shared__ float4 staged[];
+  const int len = c1 - c0;
+  const int n_blk = (len + kLanes - 1) / kLanes;
+  float* dbl = reinterpret_cast<float*>(staged);  // record e of block b: column 32 b + e mod 32
+  float* cs = dbl + n_blk * 2 * kLanes * P;       // [warp][column] sums
+  for (int e = threadIdx.x; e < n_blk * 2 * kLanes; e += kThreads) {
+    const int col = (e / (2 * kLanes)) * kLanes + (e & (kLanes - 1));
+#pragma unroll
+    for (int c = 0; c < P; ++c)
+      dbl[e * P + c] = (c < D && col < len) ? Z[static_cast<size_t>(c0 + col) * D + c] : 0.0f;
+  }
+
+  int row[R];  // the ragged last row tile: rows >= n take no pair and are not written
+  float zi[R][D];
+  RowState<R> st;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = r0 + r * kThreads + threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < D; ++c) zi[r][c] = row[r] < n ? Z[static_cast<size_t>(row[r]) * D + c] : 0.0f;
+    st.s[r] = 0.0f;
+    st.S[r] = 0.0;
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & (kLanes - 1);
+  float* mine = cs + (threadIdx.x / kLanes) * (n_blk * kLanes);
+  for (int b = 0; b < n_blk; ++b) {
+    const int j0 = c0 + b * kLanes;
+    const int live = len - b * kLanes;
+    const float* zb = dbl + (b * 2 * kLanes + lane) * P;
+    float ca = 0.0f;
+    if (live >= kLanes && j0 > r0 + R * kThreads - 1)
+      ca = own_block<D, false>(zb, j0, live, lane, zi, row, !exclude_diag, st);
+    else if (j0 + kLanes - 1 >= r0)
+      ca = own_block<D, true>(zb, j0, live, lane, zi, row, !exclude_diag, st);
+    mine[b * kLanes + lane] = ca;
+    if ((b + 1) % (kTile / kLanes) == 0 || b + 1 == n_blk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        st.S[r] += static_cast<double>(st.s[r]);
+        st.s[r] = 0.0f;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (row[r] < n) part_s[static_cast<size_t>(blockIdx.y) * n + row[r]] = st.S[r];
+  __syncthreads();
+  for (int e = threadIdx.x; e < len; e += kThreads) {
+    double sum = 0.0;
+#pragma unroll
+    for (int w = 0; w < kThreads / kLanes; ++w) sum += static_cast<double>(cs[w * (n_blk * kLanes) + e]);
+    part_col[static_cast<size_t>(blockIdx.x) * n + c0 + e] = sum;
+  }
+}
+
+// The square form's pair loop: both orders of every pair, or (kSym, student
+// only) each unordered pair once. part_c holds the gaussian shifts, or with
+// kSym the column sums.
+template <int D, bool kGaussian, bool kSym>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+rowlse_partial_kernel(const float* __restrict__ Z, double* __restrict__ part_s,
+                      double* __restrict__ part_c, int n, int chunk, int exclude_diag) {
+  static_assert(!(kSym && kGaussian), "the symmetric walk is the student mode's");
+  if constexpr (kSym)
+    symmetric_chunk<D>(Z, part_s, part_c, n, chunk, exclude_diag);
+  else
+    ordered_chunk<D, kGaussian>(Z, part_s, part_c, n, chunk, exclude_diag);
 }
 
 // The general form: rows are the m rows of Zq, global ids row_off + i;
@@ -589,16 +709,27 @@ rowlse_shard_kernel(const float* __restrict__ Zq, const float* __restrict__ Zdb,
 
 // out_i = log(sum_k S_ki) (student), or, with each chunk's sum S_ki of
 // 2^(c_ki - d^2 log2 e) and c_i = min_k c_ki, (log2(sum_k S_ki 2^(c_i - c_ki))
-// - c_i) ln 2 (gaussian); -inf for a row with no term.
-template <bool kGaussian>
+// - c_i) ln 2 (gaussian); -inf for a row with no term. kSym: the sums of the
+// chunks that reach row i's tile (of `rows` rows), then the column sums of
+// the row tiles that reach its chunk, in order: the slots the pair loop
+// wrote, and no other.
+template <bool kGaussian, bool kSym>
 __global__ void rowlse_merge_kernel(const double* __restrict__ part_s,
                                     const double* __restrict__ part_c,
-                                    float* __restrict__ out, int n, int n_chunks) {
+                                    float* __restrict__ out, int n, int n_chunks, int chunk,
+                                    int rows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   double S = 0.0;
   if (!kGaussian) {
-    for (int k = 0; k < n_chunks; ++k) S += part_s[static_cast<size_t>(k) * n + i];
+    const int k0 = kSym ? i / rows * rows / chunk : 0;
+#pragma unroll 4
+    for (int k = k0; k < n_chunks; ++k) S += part_s[static_cast<size_t>(k) * n + i];
+    if (kSym) {
+      const int tiles = (min(n, (i / chunk + 1) * chunk) - 1) / rows + 1;
+#pragma unroll 4
+      for (int t = 0; t < tiles; ++t) S += part_c[static_cast<size_t>(t) * n + i];
+    }
     out[i] = static_cast<float>(log(S));
     return;
   }
@@ -658,12 +789,15 @@ __global__ void rowlse_shard_merge_kernel(const double* __restrict__ part_s,
 template <int D>
 int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, int n_cols,
            int row_off, int n_chunks, int chunk, bool gaussian, int exclude_diag, bool shared,
-           cudaStream_t stream) {
+           bool symmetric, cudaStream_t stream) {
   constexpr int P = Shape<D>::kRec;
-  if (shared && (gaussian || chunk % kLanes != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((shared || symmetric) && (gaussian || chunk % kLanes != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the chunk staged once, and with `shared` its own blocks twice beside the
+  // warps' column sums; with `symmetric` the blocks twice and the sums only
   const size_t staged_bytes =
-      (static_cast<size_t>(chunk) * P +
-       (shared ? static_cast<size_t>(chunk) * (2 * P + kThreads / kLanes) : 0)) *
+      static_cast<size_t>(chunk) *
+      (symmetric ? 2 * P + kThreads / kLanes : P + (shared ? 2 * P + kThreads / kLanes : 0)) *
       sizeof(float);
   if (staged_bytes > kMaxStaged) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = Shape<D>::kRows * kThreads;
@@ -674,21 +808,28 @@ int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, i
   double* part_c = part + static_cast<size_t>(n_chunks) * m;
   double* part_col = shared ? part_c : nullptr;  // student: no shifts
   const bool square = Zq == Zdb && m == n_cols && row_off == 0 && !shared;
+  if (symmetric && !square) return static_cast<int>(cudaErrorInvalidValue);
   if (gaussian) {
     if (square)
-      rowlse_partial_kernel<D, true><<<grid, kThreads, staged_bytes, stream>>>(
+      rowlse_partial_kernel<D, true, false><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, part, part_c, m, chunk, exclude_diag);
     else
       rowlse_shard_kernel<D, true, false><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, Zdb, part, part_c, nullptr, m, n_cols, row_off, chunk, exclude_diag);
     if (square)
-      rowlse_merge_kernel<true><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+      rowlse_merge_kernel<true, false><<<merge_blocks, 256, 0, stream>>>(
+          part, part_c, out, m, n_chunks, chunk, rows);
     else
       rowlse_shard_merge_kernel<true><<<shard_merge_blocks, kMergeThreads, 0, stream>>>(
           part, part_c, nullptr, out, m, n_chunks, n_tiles);
+  } else if (symmetric) {  // part_c: the row tiles' column sums
+    rowlse_partial_kernel<D, false, true><<<grid, kThreads, staged_bytes, stream>>>(
+        Zq, part, part_c, m, chunk, exclude_diag);
+    rowlse_merge_kernel<false, true><<<merge_blocks, 256, 0, stream>>>(
+        part, part_c, out, m, n_chunks, chunk, rows);
   } else {
     if (square)
-      rowlse_partial_kernel<D, false><<<grid, kThreads, staged_bytes, stream>>>(
+      rowlse_partial_kernel<D, false, false><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, part, part_c, m, chunk, exclude_diag);
     else if (shared)
       rowlse_shard_kernel<D, false, true><<<grid, kThreads, staged_bytes, stream>>>(
@@ -697,7 +838,8 @@ int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, i
       rowlse_shard_kernel<D, false, false><<<grid, kThreads, staged_bytes, stream>>>(
           Zq, Zdb, part, part_c, nullptr, m, n_cols, row_off, chunk, exclude_diag);
     if (square)
-      rowlse_merge_kernel<false><<<merge_blocks, 256, 0, stream>>>(part, part_c, out, m, n_chunks);
+      rowlse_merge_kernel<false, false><<<merge_blocks, 256, 0, stream>>>(
+          part, part_c, out, m, n_chunks, chunk, rows);
     else
       rowlse_shard_merge_kernel<false><<<shard_merge_blocks, kMergeThreads, 0, stream>>>(
           part, part_c, part_col, out, m, n_chunks, n_tiles);
@@ -707,7 +849,7 @@ int launch(const float* Zq, const float* Zdb, float* out, double* part, int m, i
 
 int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int n_cols,
              int row_off, int d, int n_chunks, int chunk, int gaussian, int exclude_diag,
-             int shared, void* stream) {
+             int shared, int symmetric, void* stream) {
   if (m <= 0) return 0;
   if (n_cols <= 0 || n_chunks <= 0 || chunk <= 0 ||
       static_cast<long long>(n_chunks) * chunk < n_cols || row_off < 0 ||
@@ -717,11 +859,11 @@ int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int 
   const auto* zd = static_cast<const float*>(Zdb);
   auto* o = static_cast<float*>(out);
   auto* p = static_cast<double*>(part);
-  const bool g = gaussian != 0, sh = shared != 0;
+  const bool g = gaussian != 0, sh = shared != 0, sy = symmetric != 0;
   auto st = static_cast<cudaStream_t>(stream);
 #define TDR_LAUNCH(D)                                                                       \
   case D:                                                                                   \
-    return launch<D>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, sh, \
+    return launch<D>(zq, zd, o, p, m, n_cols, row_off, n_chunks, chunk, g, exclude_diag, sh, sy, \
                      st);
   switch (d) {
     TDR_LAUNCH(1)
@@ -743,11 +885,15 @@ int dispatch(const void* Zq, const void* Zdb, void* out, void* part, int m, int 
 // float32 on the device; part is scratch of n_chunks * n doubles (student)
 // or twice that (gaussian: the sums, then the shifts). Column chunk k covers
 // columns [k * chunk, min(n, (k + 1) * chunk)), and a chunk's staged columns
-// must fit kMaxStaged bytes. Returns the first CUDA error (0 on success).
+// must fit kMaxStaged bytes. symmetric (student only, chunk a multiple of
+// 32): each unordered pair once, part then (n_chunks + row tiles) * n
+// doubles, the chunks' row sums and the row tiles' column sums. Returns the
+// first CUDA error (0 on success).
 extern "C" int rowlse_fwd(const void* Z, void* out, void* part, int n, int d, int n_chunks,
-                          int chunk, int gaussian, int exclude_diag, void* stream) {
+                          int chunk, int gaussian, int exclude_diag, int symmetric,
+                          void* stream) {
   return dispatch(Z, Z, out, part, n, n, 0, d, n_chunks, chunk, gaussian, exclude_diag, 0,
-                  stream);
+                  symmetric, stream);
 }
 
 // The general form: Zq (m, d) holds the rows of global ids row_off + i,
@@ -759,5 +905,5 @@ extern "C" int rowlse_fwd_general(const void* Zq, const void* Zdb, void* out, vo
                                   int n_cols, int row_off, int d, int n_chunks, int chunk,
                                   int gaussian, int exclude_diag, int shared, void* stream) {
   return dispatch(Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian,
-                  exclude_diag, shared, stream);
+                  exclude_diag, shared, 0, stream);
 }

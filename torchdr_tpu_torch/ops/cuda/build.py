@@ -48,13 +48,15 @@ SIGNATURES = {
         "umap_shared_repulsion": [_V, _V, _V, _V, *[_I] * 6, _F, _F, _F, _V],
     },
     "rowlse_fwd": {
-        "rowlse_fwd": [_V, _V, _V, _I, _I, _I, _I, _I, _I, _V],
+        # Z, out, part, n, d, n_chunks, chunk, gaussian, diag, symmetric, stream
+        "rowlse_fwd": [_V, _V, _V, *[_I] * 7, _V],
         # Zq, Zdb, out, part, m, n_cols, row_off, d, n_chunks, chunk, gaussian, diag,
         # shared, stream
         "rowlse_fwd_general": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _I, _I, _I, _I, _V],
     },
     "rowlse_bwd": {
-        "rowlse_bwd": [_V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _V],
+        # Z, lse, g, out, part, n, d, n_chunks, chunk, gaussian, symmetric, stream
+        "rowlse_bwd": [_V, _V, _V, _V, _V, *[_I] * 6, _V],
         # Zq, Zdb, lse, g, dzq, dzdb, part, m, n_cols, row_off, d, n_chunks,
         # chunk, gaussian, kernels launched (int*), stream
         "rowlse_bwd_general": [_V, _V, _V, _V, _V, _V, _V, *[_I] * 7,

@@ -27,7 +27,11 @@ k = e^(−d²):
 Each launches its kernel for a CUDA tensor and takes its plain version
 (:func:`rowlse_fwd_plain`, :func:`rowlse_bwd_plain`: the JAX package's
 blockwise XLA tier, by direct differences as the kernels form them) only
-for a CPU tensor. Each counts its launches in ``.launches``.
+for a CPU tensor. Each counts its launches in ``.launches``. In the
+student mode (:func:`square_grid`'s rule: while the scratch stays within
+``_SYMMETRIC_SCRATCH_BYTES``) the kernels evaluate each unordered pair
+once, its value added to its row and to its column, in place of both
+orders; ``.symmetric_launches`` counts those calls.
 
 The general form, with the TPU kernels' signature, takes a query shard Zq
 (m, d) whose rows have the global ids ``row_offset + i``, the database Zdb
@@ -77,10 +81,16 @@ _STAGED_BYTES = 227 * 1024 // _BLOCKS_PER_SM - 1024
 _MIN_CHUNK = 64  # fewest columns worth a block of its own
 _LANES = 32  # the general kernels walk summed columns in blocks of a warp's width
 _WARPS = _THREADS // _LANES
-# the general K2 sharing the shard's own block: its grid's waves, and its
-# shortest chunk (a float32 run, kTile)
+# the kernels that evaluate each unordered pair once (the general K2 sharing
+# the shard's own block, the square K2's and K3's symmetric walk): their
+# grid's waves; the general K2's shortest chunk (a float32 run, kTile)
 _SHARED_WAVES = 3
 _SHARED_MIN_CHUNK = 256
+# the most scratch the square symmetric walk takes: its row tiles' column
+# sums grow as n²/512 (0.11 and 0.29 GB for K2 and K3 at n = 70,000, d = 2),
+# so past n of about 218,000 (K2) or 135,000 (K3) at d = 2 the call keeps
+# both orders, whose scratch grows 4 to 8 times slower
+_SYMMETRIC_SCRATCH_BYTES = 1 << 30
 
 
 def _check_z(Z, kernel):
@@ -116,6 +126,12 @@ def rows_per_block(d: int) -> int:
     return _THREADS * (_ROWS_PER_THREAD if d <= 4 else (_ROWS_PER_THREAD + 1) // 2)
 
 
+def _z_record(d: int) -> int:
+    """Floats of one staged z_j, padded to an aligned vector (``kRec`` of
+    K2's ``Shape<D>`` and the general K3's ``General<D>``)."""
+    return 1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8
+
+
 def column_bytes(d: int, backward: bool, columns_summed: bool = False) -> int:
     """Bytes of shared memory one staged column takes: z_j padded to an
     aligned vector (K2); z_j with u_j, or g_j and lse_j, padded to whole
@@ -124,12 +140,24 @@ def column_bytes(d: int, backward: bool, columns_summed: bool = False) -> int:
     each warp's float32 column sums: z_j twice and d sums (the general K3),
     or z_j three times and one sum (the general K2 sharing the shard's own
     block)."""
-    rec = 1 if d == 1 else 2 if d == 2 else 4 if d <= 4 else 8
+    rec = _z_record(d)
     if columns_summed:
         return 4 * (2 * rec + _WARPS * d) if backward else 4 * (3 * rec + _WARPS)
     if backward:
         return 4 * ((d + 2 + 3) // 4 * 4)
     return 4 * rec
+
+
+def symmetric_column_bytes(d: int, backward: bool) -> int:
+    """Bytes of shared memory one staged column takes in the square kernels'
+    symmetric walk: each block of 32 columns staged twice beside each warp's
+    float32 column sums: z_j twice and one sum (K2, ``rowlse_fwd.cu``), or
+    z_j with u_j, padded to an aligned vector (``Sym<D>::kRec``), twice and
+    d sums (K3, ``rowlse_bwd.cu``)."""
+    if backward:
+        rec = 2 if d + 1 <= 2 else _round_up(d + 1, 4)
+        return 4 * (2 * rec + _WARPS * d)
+    return 4 * (2 * _z_record(d) + _WARPS)
 
 
 def column_chunks(n: int, sm_count: int, d: int = 2, backward: bool = False,
@@ -169,26 +197,62 @@ def general_bwd_grid(m: int, n_cols: int, sm_count: int, d: int = 2):
     return row_tiles, n_chunks, chunk, (n_chunks * m + row_tiles * n_cols) * d
 
 
+def _shared_chunk(m: int, n_cols: int, sm_count: int, d: int, col_bytes: int) -> int:
+    """The chunk of a grid that evaluates each unordered pair once, m rows
+    against n_cols columns: ``_SHARED_WAVES`` waves of chunks of whole
+    blocks of 32 columns, within the staging budget of ``col_bytes`` a
+    column. The blocks left idle below the diagonal free their slots to
+    later waves, where in one wave the blocks that share (more work each)
+    would set the time."""
+    row_tiles = -(-m // rows_per_block(d))
+    most = _STAGED_BYTES // col_bytes // _LANES * _LANES
+    n_chunks = max(1, _SHARED_WAVES * sm_count * _BLOCKS_PER_SM // row_tiles)
+    return min(most, _round_up(-(-n_cols // n_chunks), _LANES))
+
+
+def square_grid(n: int, sm_count: int, d: int = 2, kernel: str = "student",
+                backward: bool = False):
+    """The square K2's (``backward`` False) or K3's grid: (symmetric,
+    n_chunks, chunk, row tiles, scratch doubles).
+
+    ``symmetric``: each unordered pair evaluated once, its value added to
+    its row and to its column, on :func:`_shared_chunk`'s grid with the
+    staging of :func:`symmetric_column_bytes`. Taken for the student
+    kernel while its scratch, the chunks' row sums, (n_chunks, n), then the
+    row tiles' column sums, (row tiles, n), each times d for K3, stays
+    within ``_SYMMETRIC_SCRATCH_BYTES``; never for the gaussian kernel,
+    whose terms are relative to their row's shift. Otherwise both orders of
+    each pair on :func:`column_chunks`' grid: the chunks' sums (K2; twice
+    that for the gaussian shifts) or (n_chunks, n, d) (K3).
+    """
+    row_tiles = -(-n // rows_per_block(d))
+    width = d if backward else 1
+    if kernel == "student":
+        chunk = _shared_chunk(n, n, sm_count, d, symmetric_column_bytes(d, backward))
+        n_chunks = -(-n // chunk)
+        scratch = (n_chunks + row_tiles) * n * width
+        if 8 * scratch <= _SYMMETRIC_SCRATCH_BYTES:
+            return True, n_chunks, chunk, row_tiles, scratch
+    n_chunks, chunk = column_chunks(n, sm_count, d, backward)
+    sums = 2 if kernel == "gaussian" and not backward else 1
+    return False, n_chunks, chunk, row_tiles, sums * n_chunks * n * width
+
+
 def k2_general_grid(m: int, n_cols: int, row_offset: int, sm_count: int, d: int = 2,
                     kernel: str = "student", shard_of_db: bool = False):
     """The general K2's grid for m live rows against n_cols live columns:
     (shared, n_chunks, chunk, row tiles).
 
     ``shared``: the shard's own m × m block evaluates each unordered pair
-    once, in a grid of ``_SHARED_WAVES`` waves (chunks of whole blocks of 32
-    columns, within the staging budget): the blocks left idle below the
-    diagonal free their slots to later waves, where in one wave the blocks
-    that share (more work each) would set the time. Taken for the student
-    kernel, where the shard's rows are the database's rows [row_offset,
-    row_offset + m) (``shard_of_db``), and where those chunks hold at least
+    once, on :func:`_shared_chunk`'s grid. Taken for the student kernel,
+    where the shard's rows are the database's rows [row_offset, row_offset
+    + m) (``shard_of_db``), and where that grid's chunks hold at least
     ``_SHARED_MIN_CHUNK`` columns; otherwise the plain grid
     (:func:`column_chunks`).
     """
     row_tiles = -(-m // rows_per_block(d))
     if kernel == "student" and shard_of_db and row_offset + m <= n_cols:
-        most = _STAGED_BYTES // column_bytes(d, False, columns_summed=True) // _LANES * _LANES
-        n_chunks = max(1, _SHARED_WAVES * sm_count * _BLOCKS_PER_SM // row_tiles)
-        chunk = min(most, _round_up(-(-n_cols // n_chunks), _LANES))
+        chunk = _shared_chunk(m, n_cols, sm_count, d, column_bytes(d, False, columns_summed=True))
         if chunk >= _SHARED_MIN_CHUNK:
             return True, -(-n_cols // chunk), chunk, row_tiles
     n_chunks, chunk = column_chunks(n_cols, sm_count, d, backward=False, n_rows=m)
@@ -415,7 +479,7 @@ def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     """Row log-sum of the pairwise kernel: (n,) float32.
 
     ``block_size`` sets the row blocks of the plain version; the kernel
-    chooses its own grid (:func:`column_chunks`).
+    chooses its own grid and walk (:func:`square_grid`).
     """
     _check_z(Z, kernel)
     if Z.device.type == "cpu":
@@ -423,18 +487,17 @@ def rowlse_fwd(Z, kernel="student", exclude_diag=True, block_size=1024):
     _check_cuda(Z, "rowlse_fwd")
     fn = load_function("rowlse_fwd", "rowlse_fwd")
     n, d = Z.shape
-    gaussian = kernel == "gaussian"
-    n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=False)
+    symmetric, n_chunks, chunk, _, scratch = square_grid(n, sm_count(Z.device.index), d, kernel)
     out = torch.empty((n,), dtype=torch.float32, device=Z.device)
-    # the chunks' sums and, for the gaussian kernel, their shifts
-    part = torch.empty((2 if gaussian else 1, n_chunks, n), dtype=torch.float64, device=Z.device)
+    part = torch.empty((scratch,), dtype=torch.float64, device=Z.device)
     rc = launch(
         fn, Z, Z.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n, d, n_chunks, chunk, int(gaussian), int(bool(exclude_diag)),
+        n, d, n_chunks, chunk, int(kernel == "gaussian"), int(bool(exclude_diag)), int(symmetric),
     )
     if rc != 0:
         raise RuntimeError(f"rowlse_fwd launch failed: cudaError {rc}.")
     rowlse_fwd.launches += 1
+    rowlse_fwd.symmetric_launches += int(symmetric)
     return out
 
 
@@ -453,21 +516,25 @@ def rowlse_bwd(Z, row_lse, g, kernel="student", block_size=1024):
     _check_cuda(Z, "rowlse_bwd")
     fn = load_function("rowlse_bwd", "rowlse_bwd")
     n, d = Z.shape
-    n_chunks, chunk = column_chunks(n, sm_count(Z.device.index), d, backward=True)
+    symmetric, n_chunks, chunk, _, scratch = square_grid(
+        n, sm_count(Z.device.index), d, kernel, backward=True)
     out = torch.empty_like(Z)
-    part = torch.empty((n_chunks, n, d), dtype=torch.float64, device=Z.device)
+    part = torch.empty((scratch,), dtype=torch.float64, device=Z.device)
     rc = launch(
         fn, Z, Z.data_ptr(), row_lse.data_ptr(), g.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n, d, n_chunks, chunk, int(kernel == "gaussian"),
+        n, d, n_chunks, chunk, int(kernel == "gaussian"), int(symmetric),
     )
     if rc != 0:
         raise RuntimeError(f"rowlse_bwd launch failed: cudaError {rc}.")
     rowlse_bwd.launches += 1
+    rowlse_bwd.symmetric_launches += int(symmetric)
     return out
 
 
 rowlse_fwd.launches = 0
 rowlse_bwd.launches = 0
+rowlse_fwd.symmetric_launches = 0
+rowlse_bwd.symmetric_launches = 0
 rowlse_fwd_general.launches = 0
 rowlse_bwd_general.launches = 0
 rowlse_bwd_general.kernel_launches = 0
